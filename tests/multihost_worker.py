@@ -3,8 +3,10 @@
 Runs one process of an N-process jax.distributed CPU job: a tiny SPMD
 cantilever through the full SpmdDriver (collective podio gathers, VTU +
 .dat + restart cadences) over a device mesh spanning both processes —
-the pod execution model of the reference's `mpirun -np N ./topopt`
-(README.md:29), minus the physical second host.
+the multi-process model of the reference's `mpirun -np N ./topopt`
+(README.md:29), minus the physical second host.  The job is joined the
+way the CLI joins it: `parallel.multihost.initialize()` reading JAX's
+coordinator variables.
 
 Invoked as:
   python tests/multihost_worker.py <pid> <nprocs> <port> <workdir>
@@ -27,16 +29,18 @@ def main():
     workdir = sys.argv[4]
     mode = sys.argv[5] if len(sys.argv) > 5 else ""
     resume = mode == "resume"
-    blocked = mode == "blocked"
 
     import jax
 
     jax.config.update("jax_enable_x64", True)  # match tests/conftest.py
-    jax.distributed.initialize(
-        coordinator_address=f"localhost:{port}",
-        num_processes=nprocs,
-        process_id=pid,
+    os.environ.update(
+        JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+        JAX_NUM_PROCESSES=str(nprocs),
+        JAX_PROCESS_ID=str(pid),
     )
+    from topopt_in_petsc_tpu.parallel.multihost import initialize
+
+    initialize()
     assert jax.process_count() == nprocs
     assert len(jax.devices()) == 8  # global mesh spans both processes
     assert len(jax.local_devices()) == 8 // nprocs
@@ -58,14 +62,6 @@ def main():
         latest = RestartManager(workdir).latest()
         assert latest is not None
         kw.update(maxItr=3, restartFileVec=latest, output_dat=False)
-    elif blocked:
-        # the zero-storage blocked-resident engine (masks/weights/RHS
-        # as axis_index-gated predicates) across REAL process
-        # boundaries; f32 (the blocked kernel stack's dtype)
-        kw.update(
-            maxItr=2, dtype="float32", operator_impl="blocked",
-            output_dat=False, output_cadence_vtu=False, restart=False,
-        )
     else:
         kw.update(maxItr=2)
     cfg = TopOptConfig(**kw)

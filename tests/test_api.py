@@ -238,44 +238,38 @@ def test_profile_dir_writes_trace(tmp_path):
     assert found, "no profiler trace files written"
 
 
-class TestAutoLevers:
-    """The shared per-chip auto rules (config.resolve_*): thresholds on
-    LOCAL dof, explicit CLI values always win."""
+class TestSolverOptions:
+    """The solver options that remain, and the removed ones rejected."""
 
-    def test_resolve_mg_mode_threshold(self):
-        cfg = TopOptConfig()
-        assert cfg.resolve_mg_mode(int(1e8)) == "same"
-        assert cfg.resolve_mg_mode(int(4e8)) == "bfloat16"
-        cfg = TopOptConfig(mg_dtype="mixed")
-        assert cfg.resolve_mg_mode(int(1e6)) == "mixed"
+    def test_mg_dtype_values(self):
+        assert TopOptConfig.from_args(["-mg_dtype", "bfloat16"]).mg_dtype \
+            == "bfloat16"
+        with pytest.raises(ValueError, match="mg_dtype"):
+            TopOptConfig.from_args(["-mg_dtype", "mixed"])
 
-    def test_resolve_cheby_lower(self):
-        # giga-dof recipe: reduced precision + degree <= 2 -> 0.25
-        cfg = TopOptConfig(smooth_sweeps=2)
-        assert cfg.resolve_cheby_lower(int(4e8)) == 0.25
-        # default degree-4 stays 0.06 even under bf16
-        cfg = TopOptConfig(mg_dtype="bfloat16")
-        assert cfg.resolve_cheby_lower(int(1e6)) == 0.06
-        # explicit value wins everywhere
-        cfg = TopOptConfig(smooth_sweeps=2, cheby_lower=0.1)
-        assert cfg.resolve_cheby_lower(int(4e8)) == 0.1
-        # f32 V-cycle at small sizes: classic band
-        cfg = TopOptConfig(smooth_sweeps=2)
-        assert cfg.resolve_cheby_lower(int(1e6)) == 0.06
-
-    def test_resolve_park(self):
-        cfg = TopOptConfig()
-        assert not cfg.resolve_park(int(1e8))
-        assert cfg.resolve_park(int(4e8))
-        assert not TopOptConfig(park_design=0).resolve_park(int(4e8))
-        assert TopOptConfig(park_design=1).resolve_park(100)
+    def test_operator_impl_values(self):
+        for v in ("auto", "xla"):
+            assert TopOptConfig.from_args(
+                ["-operator_impl", v]
+            ).operator_impl == v
+        for v in ("pallas", "blocked", "triton"):
+            with pytest.raises(ValueError, match="operator_impl"):
+                TopOptConfig.from_args(["-operator_impl", v])
 
     def test_cli_flags_roundtrip(self):
         cfg = TopOptConfig.from_args(
-            ["-park_design", "0", "-mg_fine_post", "2",
-             "-cheby_lower", "0.3", "-tail_split", "1"]
+            ["-cheby_lower", "0.3", "-smooth_sweeps", "2",
+             "-ksp_type", "fgmres", "-coarse_maxit", "12"]
         )
-        assert cfg.park_design == 0
-        assert cfg.mg_fine_post == 2
-        assert cfg.cheby_lower == 0.3
-        assert cfg.tail_split
+        assert cfg.cheby_lower == 0.3 and cfg.smooth_sweeps == 2
+        assert cfg.ksp_type == "fgmres" and cfg.coarse_maxit == 12
+        assert TopOptConfig().cheby_lower == 0.06  # no size-based rule
+
+    @pytest.mark.parametrize(
+        "flag",
+        ["-ksp_chunk", "-park_design", "-tail_split", "-mg_fine_post",
+         "-ksp_monitor"],
+    )
+    def test_removed_options_rejected(self, flag):
+        with pytest.raises(ValueError, match="unknown option"):
+            TopOptConfig.from_args([flag, "1"])

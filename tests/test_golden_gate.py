@@ -1,7 +1,7 @@
 """The golden-trajectory regression gate itself must work.
 
-tools/compare_history.py is the automated gate run at the end of
-tools/run_campaign256.sh and by `make golden-gate` (docs/GOLDEN_RUN.md):
+tools/compare_history.py is the automated gate run by chip_smoke.py and
+by `make golden-gate` (docs/GOLDEN_RUN.md):
 exit 0 when the fx trajectory matches the committed golden baseline
 within rtol, non-zero on a breach.  These tests prove both sides of the
 gate fire, so a trajectory regression cannot pass silently.

@@ -1,13 +1,14 @@
 """Guard the driver-harness entry points (they are compile-checked
 externally; breaking their signatures must fail the suite first)."""
 
+import os
 import sys
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def test_entry_compiles_and_runs():

@@ -88,3 +88,69 @@ def test_scalar_dof_operator():
     np.testing.assert_allclose(
         np.asarray(got).ravel(), Kd @ u.ravel(), rtol=1e-10
     )
+
+
+# odd, non-cubic grids (node counts), each axis at least 2 nodes
+GRIDS = [(3, 4, 5), (5, 3, 4), (4, 5, 3), (2, 3, 6), (6, 2, 3)]
+
+
+def _element_matrix(grid, dof):
+    if dof == 3:
+        return hex8_stiffness(*grid.h, NU)
+    from topopt_in_petsc_tpu.models.elements import (
+        helmholtz_element_matrices,
+    )
+
+    return helmholtz_element_matrices(*grid.h, R=0.05)[0]
+
+
+def _case(nn, dof, seed):
+    grid = Grid(nn=nn, lo=(0, 0, 0), hi=(0.3 * nn[0], 0.25 * nn[1],
+                                         0.2 * nn[2]))
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(1e-3, 1.0, size=grid.ne)
+    u = rng.normal(size=(*nn, dof))
+    KE = _element_matrix(grid, dof)
+    return grid, KE, scale, u, assemble_dense(scale, KE, nn, dof=dof)
+
+
+@pytest.mark.parametrize("dof", [1, 3])
+@pytest.mark.parametrize("nn", GRIDS)
+def test_apply_matches_dense_grids(nn, dof):
+    grid, KE, scale, u, Kd = _case(nn, dof, seed=sum(nn) + dof)
+    got = apply_hex_operator(
+        jnp.asarray(u), jnp.asarray(scale), jnp.asarray(KE)
+    )
+    np.testing.assert_allclose(
+        np.asarray(got).ravel(), Kd @ u.ravel(), rtol=1e-10, atol=1e-12
+    )
+
+
+@pytest.mark.parametrize("dof", [1, 3])
+@pytest.mark.parametrize("nn", GRIDS)
+def test_diagonal_matches_dense_grids(nn, dof):
+    grid, KE, scale, u, Kd = _case(nn, dof, seed=7 * sum(nn) + dof)
+    got = hex_operator_diagonal(jnp.asarray(scale), jnp.asarray(KE), nn)
+    np.testing.assert_allclose(
+        np.asarray(got).ravel(), np.diag(Kd), rtol=1e-10
+    )
+
+
+@pytest.mark.parametrize("nn", GRIDS)
+def test_absrowsum_stencil_matches_gather_form(nn):
+    """The 8-tap absolute-row-sum stencil (Gershgorin input) equals the
+    gather form applied to ones with |KE|, and the dense |K| row sums."""
+    from topopt_in_petsc_tpu.ops.hex_operator import (
+        hex_operator_absrowsum,
+    )
+
+    grid, KE, scale, u, Kd = _case(nn, 3, seed=3 * sum(nn))
+    KEj = jnp.asarray(KE)
+    ref = apply_hex_operator(
+        jnp.ones((*nn, 3)), jnp.asarray(scale), jnp.abs(KEj)
+    )
+    got = hex_operator_absrowsum(jnp.asarray(scale), KEj, nn)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-10)
+    # |K| row sums bound the element-wise sums from above
+    assert np.all(np.asarray(got).ravel() >= np.abs(Kd).sum(1) - 1e-9)

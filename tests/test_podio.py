@@ -1,4 +1,4 @@
-"""Pod-safe IO helpers (parallel/podio.py): gathers that assemble from
+"""Multi-process-safe IO helpers (parallel/podio.py): gathers that assemble from
 addressable shards only, restart puts via make_array_from_callback —
 the multi-host-correct forms of SpmdDriver's IO (MPIIO.cc:380-714,
 TopOpt.cc:514-570), validated on the 8-virtual-device CPU mesh."""

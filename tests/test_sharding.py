@@ -54,7 +54,7 @@ def test_sharded_physics_step_matches():
     phys = LinearElasticity(cfg)
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.uniform(0.3, 0.9, size=phys.grid.ne))
-    # the warm-start buffer is DONATED into the solution (HBM saving
+    # the warm-start buffer is DONATED into the solution (memory saving
     # at 256^3+): pass a fresh buffer per call
     ref = phys.compute_objective_constraints_sensitivities(
         x, jnp.zeros((*phys.grid.nn, 3))

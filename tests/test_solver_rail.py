@@ -143,7 +143,7 @@ def test_ksp_type_validation():
 
 
 def test_fused_step_matches_driver_from_iteration_one(tmp_path):
-    """The fused step's first-iteration variants (fscale, fresh
+    """The fused step's first-iteration semantics (fscale, fresh
     asymptotes) make its trajectory IDENTICAL to the Driver's."""
     import jax
 

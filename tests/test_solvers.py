@@ -150,3 +150,45 @@ def test_coarsen_cell_field():
     E = jnp.arange(8.0).reshape(2, 2, 2)
     c = coarsen_cell_field(E)
     np.testing.assert_allclose(np.asarray(c), [[[3.5]]])
+
+
+def _solve_cfg(**kw):
+    from topopt_in_petsc_tpu.config import TopOptConfig
+
+    cfg = TopOptConfig(nx=9, ny=5, nz=5, nlvls=2, dtype="float32",
+                       ksp_rtol=1e-6, ksp_maxit=200, **kw)
+    cfg.validate()
+    return cfg
+
+
+def test_nodal_solve_fgmres():
+    """-ksp_type fgmres on the nodal path reaches the tolerance and the
+    FCG solution."""
+    from topopt_in_petsc_tpu.models.elasticity import LinearElasticity
+
+    x = jnp.full((8, 4, 4), 0.5, jnp.float32)
+    ref = LinearElasticity(_solve_cfg()).solve_state(x)
+    phys = LinearElasticity(_solve_cfg(ksp_type="fgmres",
+                                       ksp_gmres_restart=20))
+    res = phys.solve_state(x)
+    assert float(res.relres) < 1e-6
+    scale = float(jnp.max(jnp.abs(ref.x)))
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
+                               rtol=1e-3, atol=1e-4 * scale)
+
+
+def test_nodal_solve_bf16_vcycle():
+    """-mg_dtype bfloat16: the V-cycle stores bf16, the outer flexible
+    CG stays f32 — the solution still reaches the f32 tolerance."""
+    from topopt_in_petsc_tpu.models.elasticity import LinearElasticity
+
+    x = jnp.full((8, 4, 4), 0.5, jnp.float32)
+    ref = LinearElasticity(_solve_cfg()).solve_state(x)
+    phys = LinearElasticity(_solve_cfg(mg_dtype="bfloat16"))
+    assert phys.mg.precond_dtype == jnp.bfloat16
+    res = phys.solve_state(x)
+    assert res.x.dtype == jnp.float32
+    assert float(res.relres) < 1e-6
+    scale = float(jnp.max(jnp.abs(ref.x)))
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
+                               rtol=1e-2, atol=1e-3 * scale)

@@ -12,6 +12,15 @@ import sys
 import numpy as np
 
 
+def max_rel_diff(a, b) -> float:
+    """Largest |a - b| / max(|a|, 1e-12) over the common prefix."""
+    n = min(len(a), len(b))
+    if n == 0:
+        return float("inf")
+    va, vb = np.asarray(a, float)[:n], np.asarray(b, float)[:n]
+    return float((np.abs(va - vb) / np.maximum(np.abs(va), 1e-12)).max())
+
+
 def main() -> int:
     a_path, b_path = sys.argv[1], sys.argv[2]
     rtol = float(sys.argv[3]) if len(sys.argv) > 3 else 1e-3

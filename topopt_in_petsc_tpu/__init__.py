@@ -1,7 +1,7 @@
-"""topopt_in_petsc_tpu — TPU-native large-scale 3D topology optimization.
+"""topopt_in_petsc_tpu — large-scale 3D topology optimization in JAX.
 
-A brand-new framework, built from scratch in JAX/XLA (pjit + Pallas), with the
-capabilities of the PETSc/MPI reference `topopt/TopOpt_in_PETSc`:
+A framework built in JAX/XLA (shard_map + one Pallas kernel for the GPU),
+with the capabilities of the PETSc/MPI reference `topopt/TopOpt_in_PETSc`:
 
 - minimum-compliance SIMP optimization on structured hex grids
   (reference: main.cc, TopOpt.cc),
@@ -17,9 +17,9 @@ capabilities of the PETSc/MPI reference `topopt/TopOpt_in_PETSc`:
   (MPIIO.cc + bin2vtu_v3.py, emitted directly as .vtu here).
 
 Everything distributed runs over a single `jax.sharding.Mesh` with named axes
-('x', 'y', 'z'); fields are block-partitioned with `NamedSharding` and XLA
-GSPMD inserts the halo-exchange collectives that PETSc's DMDA performs
-explicitly in the reference.
+('x', 'y', 'z'); fields are block-partitioned over the devices and the SPMD
+engine exchanges the halo planes that PETSc's DMDA exchanges in the
+reference.
 """
 
 from topopt_in_petsc_tpu.config import TopOptConfig

@@ -18,9 +18,12 @@ def main(argv=None) -> int:
     # f64 scalar reductions on top of f32 fields (like the reference's
     # all-f64 PETSc arithmetic where it matters for convergence).
     jax.config.update("jax_enable_x64", True)
-    # multi-host launch (the reference's `mpirun -np N`, README.md:29):
-    # on a pod slice each host runs this same CLI; initialize() wires
-    # jax.distributed (no-op single-process), making the CLI pod-ready.
+    from topopt_in_petsc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    # multi-process launch (the reference's `mpirun -np N`, README.md:29):
+    # each process runs this same CLI; initialize() joins the job named
+    # by JAX's coordinator variables (no-op for one process).
     from topopt_in_petsc_tpu.parallel.multihost import initialize
 
     initialize()

@@ -15,6 +15,8 @@ from typing import Sequence
 
 import jax.numpy as jnp
 
+from topopt_in_petsc_tpu.ops.select import IMPLS, resolve_operator
+
 
 @dataclasses.dataclass
 class TopOptConfig:
@@ -68,78 +70,38 @@ class TopOptConfig:
     restartFileVecSol: str = ""
     workdir: str = "./"
 
-    # --- Linear solver (LinearElasticity.cc:619-635; TPU-native choices) ---
+    # --- Linear solver (LinearElasticity.cc:619-635) ---
     # Outer Krylov: the reference uses FGMRES(100); K is SPD after the
     # symmetric Dirichlet treatment (LinearElasticity.cc:530-538) so we use
-    # flexible-PCG by default (tpu-friendly short recurrence).
+    # flexible-PCG by default (short recurrence, few stored vectors).
     ksp_rtol: float = 1.0e-5
     ksp_maxit: int = 200
-    # outer Krylov: "fcg" (flexible PCG, TPU default — K is SPD) or
+    # outer Krylov: "fcg" (flexible PCG, the default — K is SPD) or
     # "fgmres" (the reference's own method, LinearElasticity.cc:638-650;
-    # robustness fallback, costs (2*restart+1) basis vectors of HBM)
+    # robustness fallback, costs (2*restart+1) basis vectors of memory)
     ksp_type: str = "fcg"
     ksp_gmres_restart: int = 30
-    # chunked state solve: run the outer Krylov as a host loop over
-    # N-iteration device programs (full Krylov state crosses the jit
-    # boundary, so the trajectory is unchanged).  This backend kills
-    # single device executions beyond ~1-2 min; at 512^3 (~0.8
-    # s/iteration) the solve MUST be chunked.  -1 = auto (chunk of 32
-    # when ndof >= 1e8), 0 = never, >0 = explicit chunk size.
-    ksp_chunk: int = -1
-    # PETSc's -ksp_monitor analogue: print per-chunk residual norms on
-    # the chunked solve path (inside a single compiled solve the
-    # residual history is not host-visible; the final iter/rerr line is
-    # always printed by the driver).
-    ksp_monitor: bool = False
-    # giga-dof fused-iteration memory lever: park the design/optimizer
-    # element fields (x, xTilde, L, U, xo1, xo2) and the filter
-    # constants on the HOST while the state solve runs, restoring them
-    # for the tail program — bit-exact (pure data movement, no
-    # precision change), trading ~2x3 GB of PCIe/tunnel traffic per
-    # iteration for ~4 GB of solve-phase HBM.  -1 = auto (on when the
-    # solve is host-chunked AND local ndof >= 3.5e8, the size where the
-    # full fused state exceeds one chip), 0 = never, 1 = always.
-    park_design: int = -1
-    # run the fused iteration's post-solve tail as TWO programs
-    # (objective+filter-gradients, then MMA+project) instead of one —
-    # a smaller-program fallback for giga-dof sizes and a peak-HBM
-    # relief (the MMA dual solve never coexists with the quadform's
-    # transients).  Trajectory-identical (same ops, one host hop).
-    tail_split: bool = False
-    # degree of an f32 Chebyshev refinement appended to a
-    # reduced-precision (bf16) V-cycle, using the resident f32 fine
-    # kernel — damps the bf16 rounding noise for ~1 f32 matvec per
-    # degree with zero extra stored vectors.  0 = off.
-    mg_fine_post: int = 0
     coarse_op: str = "rediscretize"  # or "galerkin_octant" (exact
     # level-1 Galerkin; comparable iteration counts, higher per-cycle cost)
     coarse_rtol: float = 1.0e-8
     coarse_maxit: int = 30
     smooth_sweeps: int = 4  # Chebyshev degree per pre/post smooth
     cheby_upper: float = 1.1  # smooth band = [lower*lmax, upper*lmax]
-    # -1 = auto: 0.06 for the default degree-4 smoother; 0.25 when a
-    # reduced-precision V-cycle runs degree <= 2 (the 512^3 recipe) —
-    # a degree-2 polynomial cannot damp a [0.06, 1.1] band, and
-    # narrowing it is a measured free win (110 -> 97 iterations,
-    # 83.2 -> 73.4 s at 512^3; docs/PERFORMANCE.md round-5e).
     # (lmax from the certain Gershgorin bound.)
-    cheby_lower: float = -1.0
+    cheby_lower: float = 0.06
 
     # --- PDE filter solver (PDEFilter.cc:269-380) ---
     pde_nlvls: int = 3
     pde_rtol: float = 1.0e-8
     pde_maxit: int = 60
 
-    # --- TPU-native knobs (no reference equivalent) ---
+    # --- Knobs with no reference equivalent ---
     dtype: str = "float32"  # field dtype: "float32" | "float64"
-    # fine-level K@u: "auto" (Pallas kernel on TPU, XLA elsewhere),
-    # "xla", or "pallas"
+    # fine-level K@u: "auto" (ops/select.py: the fused kernel on a GPU
+    # for float32, the XLA gather form otherwise) or "xla"
     operator_impl: str = "auto"
-    # V-cycle precision: "same" | "bfloat16" | "mixed" (f32 fine level,
-    # bf16 coarse levels)
+    # V-cycle storage: "same" (field dtype) | "bfloat16"
     mg_dtype: str = "same"
-    # (pallas: fused VMEM kernel, experimental on this environment's
-    # remote Mosaic compiler — see ops/pallas_hex.py)
     precise_dots: bool = True  # upcast CG/objective reductions to f64
     mesh_shape: tuple = (1, 1, 1)  # device mesh (x, y, z); product = #devices
     # run each optimization iteration as ONE compiled program (the SPMD
@@ -174,53 +136,6 @@ class TopOptConfig:
     @property
     def ndof(self) -> int:
         return 3 * self.nx * self.ny * self.nz
-
-    # -- shared auto-lever rules (single-chip AND per-shard SPMD; the
-    # thresholds are PER-CHIP constraints, so callers pass local dof) -- #
-
-    def resolve_ksp_chunk(self, ndof: int) -> int:
-        """Resolved -ksp_chunk for a given (local) dof count: >=0
-        explicit, -1 auto — 32-iteration chunks at >= 1e8 dof (this
-        backend kills device executions beyond ~1-2 minutes)."""
-        if self.ksp_chunk >= 0:
-            return self.ksp_chunk
-        return 32 if ndof >= 1e8 else 0
-
-    def resolve_mg_bf16(self, ndof: int) -> bool:
-        """True when the resolved V-cycle storage is not pure f32."""
-        return self.resolve_mg_mode(ndof) != "same"
-
-    def resolve_park(self, ndof: int) -> bool:
-        """Resolved -park_design for a given (local) dof count: the
-        fused iteration's design/MMA/filter state (~4 GB at 512^3) on
-        top of the solve's ~14.5 GB peak exceeds one chip's HBM — park
-        it on the host during the solve phase."""
-        if self.park_design >= 0:
-            return bool(self.park_design)
-        return ndof >= 3.5e8
-
-    def resolve_cheby_lower(self, ndof: int) -> float:
-        """Resolved smoother band lower bound (see the field comment):
-        explicit value wins; auto narrows the band to 0.25 when the
-        resolved V-cycle is reduced-precision AND the smoother degree
-        is <= 2 (the giga-dof recipe)."""
-        if self.cheby_lower >= 0:
-            return self.cheby_lower
-        if self.resolve_mg_mode(ndof) != "same" and \
-                self.smooth_sweeps <= 2:
-            return 0.25
-        return 0.06
-
-    def resolve_mg_mode(self, ndof: int) -> str:
-        """Resolved V-cycle storage mode: "same" (f32), "bfloat16"
-        (every level bf16), or "mixed" (f32 fine level, bf16 coarse
-        levels).  Auto at >= 3.5e8 (local) dof the f32 V-cycle exceeds
-        one chip's HBM (compile-checked at 512^3: f32 needs 16.2 GB >
-        15.75 GB; bf16 fits at 14.5 GB) — the auto pick is "bfloat16",
-        the proven-fit flagship recipe."""
-        if self.mg_dtype != "same":
-            return self.mg_dtype
-        return "bfloat16" if ndof >= 3.5e8 else "same"
 
     @property
     def dx(self) -> float:
@@ -260,10 +175,14 @@ class TopOptConfig:
             raise ValueError(
                 f"-ksp_type must be 'fcg' or 'fgmres', got {self.ksp_type}"
             )
-        if self.mg_dtype not in ("same", "bfloat16", "mixed"):
+        if self.mg_dtype not in ("same", "bfloat16"):
             raise ValueError(
-                f"-mg_dtype must be 'same', 'bfloat16' or 'mixed', "
-                f"got {self.mg_dtype}"
+                f"-mg_dtype must be 'same' or 'bfloat16', got {self.mg_dtype}"
+            )
+        if self.operator_impl not in IMPLS:
+            raise ValueError(
+                f"-operator_impl must be one of {IMPLS}, "
+                f"got {self.operator_impl}"
             )
 
     # ----------------------------------------------------------------- #
@@ -271,11 +190,10 @@ class TopOptConfig:
 
     _INT_FLAGS = ("nx", "ny", "nz", "nlvls", "maxItr", "filter", "nconstraints",
                   "ksp_maxit", "smooth_sweeps", "pde_nlvls", "pde_maxit",
-                  "coarse_maxit", "ksp_gmres_restart", "ksp_chunk",
-                  "park_design", "mg_fine_post")
+                  "coarse_maxit", "ksp_gmres_restart")
     _BOOL_FLAGS = ("projectionFilter", "restart", "onlyLoadDesign",
-                   "fused", "ksp_monitor", "tail_split",
-                   "precise_dots", "output_cadence_vtu", "output_dat")
+                   "fused", "precise_dots", "output_cadence_vtu",
+                   "output_dat")
     _STR_FLAGS = ("restartFileVec", "restartFileItr", "restartFileVecSol",
                   "workdir", "dtype", "coarse_op", "operator_impl",
                   "mg_dtype", "profile_dir", "ksp_type")
@@ -311,7 +229,11 @@ class TopOptConfig:
         return cfg
 
     def banner(self) -> str:
-        """Config printout equivalent to TopOpt.cc:168-180, 339-353."""
+        """Config printout equivalent to TopOpt.cc:168-180, 339-353, plus
+        the fine-level operator this run resolves to."""
+        impl = resolve_operator(self.operator_impl, self.dtype)
+        if impl != resolve_operator(self.operator_impl, "float32"):
+            impl += f" (the fused kernel is float32-only; dtype={self.dtype})"
         lines = [
             "#" * 62,
             "######################### FEM settings #######################",
@@ -320,6 +242,7 @@ class TopOptConfig:
             f"# Number of elements:                    ({self.nelx},{self.nely},{self.nelz})",
             f"# Dimensions: (-xcmin,-xcmax,..,-zcmax): ({self.xcmax - self.xcmin},{self.ycmax - self.ycmin},{self.zcmax - self.zcmin})",
             f"# -nlvls: {self.nlvls}",
+            f"# -operator_impl: {impl}",
             "################### Optimization settings ####################",
             f"# Problem size: n= {self.nelem}, m= {self.m}",
             f"# -filter: {self.filter}  (0=sens., 1=dens, 2=PDE)",

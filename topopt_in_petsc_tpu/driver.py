@@ -143,7 +143,7 @@ class Driver:
         )
 
         history = {"fx": [], "gx": [], "ch": [], "mnd": [], "iters": [],
-                   "time": [], "stalled": []}
+                   "relres": [], "time": [], "stalled": []}
         ch = 1.0
         # STEP 7: optimization loop (main.cc:54)
         while self.itr < maxItr and ch > 0.01:
@@ -231,6 +231,7 @@ class Driver:
             history["ch"].append(ch)
             history["mnd"].append(mnd)
             history["iters"].append(int(res.iters))
+            history["relres"].append(float(res.relres))
             history["time"].append(t2 - t1)
             history["stalled"].append(stalled)
 
@@ -262,9 +263,7 @@ def _run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
             )
 
             return SpmdDriver(cfg).run(max_iters)
-        # single chip, conv filters: the fused step over the
-        # blocked-resident solver (fastest path: one XLA program per
-        # iteration, 4.5 s at 256^3 on a v5e)
+        # one device, conv filters: one XLA program per iteration
         from topopt_in_petsc_tpu.fused_driver import FusedDriver
 
         return FusedDriver(cfg).run(max_iters)

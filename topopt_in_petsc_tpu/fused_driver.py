@@ -1,12 +1,9 @@
-"""Single-chip fused-step optimization driver.
+"""Single-device fused-step optimization driver.
 
 Runs the main.cc loop with each iteration as ONE compiled XLA program
-(`parallel/fused_step.make_fused_step`, which uses the blocked-resident
-solver on TPU — measured 4.5 s/iteration at 256^3 vs ~14-18 s through
-the SPMD engine's per-apply kernels on one device).  The host only
-advances the loop, applies beta continuation (with reference-exact
-re-projection, main.cc:92-98), logs, and handles the VTU/restart
-cadences.
+(`parallel/fused_step.make_fused_step`).  The host only advances the
+loop, applies beta continuation (with reference-exact re-projection,
+main.cc:92-98), logs, and handles the VTU/restart cadences.
 
 Selected by the CLI for `-fused 1` on a 1,1,1 mesh with filter 0/1
 (driver.run_topopt); multi-device and PDE-filter runs use
@@ -41,11 +38,6 @@ class FusedDriver:
         self.grid = aux["grid"]
         self.filt = aux["filt"]
         self._filt_consts = aux["filt_consts"]
-        # on the chunked (giga-dof) route OptState.u lives in the
-        # solver's kernel layout; these convert at IO/restart
-        # boundaries only (identity otherwise)
-        self._u_to_nodal = aux["u_to_nodal"]
-        self._u_from_nodal = aux["u_from_nodal"]
         self.dtype = cfg.jnp_dtype
         # beta continuation re-filters/projects the design with the NEW
         # beta before the next solve (main.cc:92-98 ordering)
@@ -84,7 +76,7 @@ class FusedDriver:
                 sol = self.restart_mgr.load_state(cfg.restartFileVecSol)
                 if sol is not None:
                     self.state = self.state._replace(
-                        u=self._u_from_nodal(jnp.asarray(sol, dt))
+                        u=jnp.asarray(sol, dt)
                     )
                 print(
                     f"# Continue optimization from file: "
@@ -103,7 +95,7 @@ class FusedDriver:
         s = self.state
         if self.dat is None and not cfg.output_cadence_vtu:
             return
-        u = self._u_to_nodal(s.u)
+        u = s.u
         if self.dat is not None:
             un = np.asarray(u)
             self.dat.write_fields(
@@ -120,8 +112,7 @@ class FusedDriver:
 
     def _write_restart(self):
         if not self.restart_mgr.enabled:
-            # skip the argument gathers too: u_to_nodal + the D2H
-            # transfers below are ~3.5 min at 512^3 on this link
+            # skip the device-to-host copies below too
             return
         s = self.state
         self.restart_mgr.write(
@@ -129,7 +120,7 @@ class FusedDriver:
             np.asarray(s.x), np.asarray(s.xPhys),
             np.asarray(s.xo1), np.asarray(s.xo2),
             np.asarray(s.U), np.asarray(s.L),
-            np.asarray(self._u_to_nodal(s.u)),
+            np.asarray(s.u),
         )
 
     # ------------------------------------------------------------- #
@@ -146,15 +137,9 @@ class FusedDriver:
             s.x, s.beta, jnp.asarray(cfg.eta, self.dtype),
             *self._filt_consts,
         )
-        # parked (giga-dof) states must keep xTilde on the HOST: a
-        # device leaf here sits through the next solve phase and its
-        # 0.54 GB blows the razor-thin 512^3 HBM margin (hardware:
-        # runs/driver_512.log round 5)
-        if isinstance(s.xTilde, np.ndarray):
-            xTilde = np.asarray(xTilde)
         self.state = s._replace(xTilde=xTilde, xPhys=xPhys)
         history = {"fx": [], "gx": [], "ch": [], "mnd": [], "iters": [],
-                   "time": [], "stalled": []}
+                   "relres": [], "time": [], "stalled": []}
         ch = 1.0
         while self.itr < maxItr and ch > 0.01:
             self.itr += 1
@@ -190,9 +175,6 @@ class FusedDriver:
                         *self._filt_consts,
                     )
                     mnd = float(jnp.mean(4.0 * xPhys * (1.0 - xPhys)))
-                    if isinstance(s.xTilde, np.ndarray):
-                        # keep the parked invariant (see run() head)
-                        xTilde = np.asarray(xTilde)
                     self.state = self.state._replace(
                         beta=beta_a, xTilde=xTilde, xPhys=xPhys,
                     )
@@ -224,6 +206,7 @@ class FusedDriver:
             history["ch"].append(ch)
             history["mnd"].append(mnd)
             history["iters"].append(int(s.solver_iters))
+            history["relres"].append(float(s.solver_relres))
             history["time"].append(t2 - t1)
             history["stalled"].append(stalled)
 

@@ -1,6 +1,6 @@
 """Structured hex grid geometry.
 
-TPU-native replacement for the two co-partitioned PETSc DMDAs the reference
+JAX replacement for the two co-partitioned PETSc DMDAs the reference
 builds in TopOpt::SetUpMESH (TopOpt.cc:233-300): a nodal box grid of
 ``(nx, ny, nz)`` nodes and an element grid of ``(nx-1, ny-1, nz-1)`` cells.
 In the reference the element DMDA is forced onto the same processor

@@ -39,7 +39,7 @@ class MPIIODat:
         self,
         path: str,
         grid,
-        info: str = "TopOpt on TPU",
+        info: str = "TopOpt in JAX",
         point_field_names: str = "ux, uy, uz",
         cell_field_names: str = "x, xTilde, xPhys",
     ):

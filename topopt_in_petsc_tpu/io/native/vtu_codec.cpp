@@ -1,7 +1,7 @@
 // Native I/O codec for giga-voxel field output.
 //
 // The reference's output path is native C++ throughout (MPIIO.cc's
-// collective MPI-IO writes); here the TPU does the compute and the host
+// collective MPI-IO writes); here the device does the compute and the host
 // writes .vtu/.dat, whose cost at 512^3 is dominated by base64 encoding
 // (~1.6 GB of Float32 per state field dump) and f64->f32 conversion.
 // This translation unit provides those hot loops natively; Python loads

@@ -1,14 +1,15 @@
 """Linear elasticity physics: cantilever BC/load, state solve, compliance.
 
-TPU-native equivalent of the reference LinearElasticity class
+JAX equivalent of the reference LinearElasticity class
 (LinearElasticity.{h,cc}): owns the 3-dof nodal field layout, the constant
 24x24 Hex8 element stiffness, the Dirichlet mask N and load RHS, the
 MG-preconditioned Krylov state solver, and the objective/constraint/
 sensitivity computation.
 
-Differences by design (idiomatic JAX/TPU, see SURVEY §7.1):
- - no assembled stiffness matrix: `K(x) @ u` is the fused matrix-free
-   gather-matmul-scatter of ops.hex_operator,
+Differences by design (idiomatic JAX, see SURVEY §7.1):
+ - no assembled stiffness matrix: `K(x) @ u` is matrix-free — the fused
+   kernel of ops.hex_triton on a GPU, the gather-matmul-scatter of
+   ops.hex_operator elsewhere (ops/select.py decides),
  - outer Krylov is flexible PCG (K is SPD) instead of FGMRES,
  - multigrid uses Chebyshev-Jacobi smoothers + rediscretized coarse
    operators instead of GMRES/SOR + Galerkin RAP,
@@ -18,8 +19,6 @@ Differences by design (idiomatic JAX/TPU, see SURVEY §7.1):
 
 from __future__ import annotations
 
-import sys
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -29,6 +28,7 @@ import numpy as np
 from topopt_in_petsc_tpu.grid import Grid
 from topopt_in_petsc_tpu.models.elements import hex8_stiffness
 from topopt_in_petsc_tpu.ops.hex_operator import element_quadratic_form
+from topopt_in_petsc_tpu.ops.select import make_fine_apply, resolve_operator
 from topopt_in_petsc_tpu.solvers.cg import accurate_sum, pcg
 from topopt_in_petsc_tpu.solvers.multigrid import GeometricMultigrid
 
@@ -90,123 +90,11 @@ class LinearElasticity:
         # nodes coincide with fine nodes at even indices).
         grids = self.grid.hierarchy(cfg.nlvls)
         KEs = [hex8_stiffness(*g.h, cfg.nu) for g in grids]
-        # optional Pallas fine-level operator (cfg.operator_impl):
-        # used for the outer CG matvec AND the fine level inside the
-        # V-cycle (the smoothing sweeps dominate solve time).
-        # "auto" = blocked-resident solver on TPU (the fastest path:
-        # vectors stay in the kernel layout across the whole solve,
-        # solvers/blocked_mg.py), xla elsewhere (the kernel has no
-        # CPU/GPU lowering outside interpret mode).  "pallas" = the
-        # per-apply relayout kernel; "blocked" forces the resident
-        # solver (interpret-mode on CPU, for tests).
-        on_tpu = jax.devices()[0].platform == "tpu"
-        impl = cfg.operator_impl
-        if impl == "auto":
-            impl = "blocked" if on_tpu else "xla"
-        if impl == "blocked" and cfg.dtype != "float32":
-            # the blocked kernel stack is f32-only; a float64 config
-            # must not silently get an f32 solve — fall back to the
-            # nodal XLA operators (full-dtype MG) and say so
-            impl = "xla"
-            print(
-                f"# operator_impl '{cfg.operator_impl}': blocked-"
-                f"resident solver is float32-only; using 'xla' for "
-                f"dtype={cfg.dtype}"
-            )
-        self._pallas_apply = None
-        self._pallas_quadform = None
-        self._bsolver = None
-        level_applies = None
-        if impl == "blocked":
-            from topopt_in_petsc_tpu.solvers.blocked_mg import (
-                BlockedElasticityMG,
-            )
+        # fine-level K@u (outer Krylov AND the fine V-cycle level, where
+        # the smoothing sweeps spend most of the solve): ops/select.py
+        impl = resolve_operator(cfg.operator_impl, cfg.dtype)
+        fine_apply = make_fine_apply(impl, KEs[0])
 
-            # Dirichlet masks AND the load RHS are on-the-fly index
-            # predicates inside the blocked solver
-            # (LinearElasticity.cc:143-171 computes BCs from coordinates
-            # too) — no (nx,ny,nz,3) fields on device at all, the
-            # decisive memory lever at 512^3.
-            self.N = None
-            self.RHS = None
-            self._bsolver = BlockedElasticityMG(
-                grids,
-                KEs,
-                smooth_sweeps=cfg.smooth_sweeps,
-                cheby_lower=cfg.resolve_cheby_lower(cfg.ndof),
-                cheby_upper=cfg.cheby_upper,
-                coarse_rtol=cfg.coarse_rtol,
-                coarse_maxit=cfg.coarse_maxit,
-                precise_dots=cfg.precise_dots,
-                # -mg_dtype bfloat16: bf16-storage V-cycle (f32 kernel
-                # compute, f32 outer Krylov) — halves smoother HBM
-                # traffic and the live-set footprint; pair with the
-                # flexible outer (ksp_type fcg, the default) since the
-                # rounded preconditioner is no longer exactly linear.
-                # Auto-engaged at giga-dof sizes (the shared rule,
-                # config.resolve_mg_bf16; measured: 512^3 solves in
-                # 105 iterations under bf16 storage).
-                mg_dtype={
-                    "same": None,
-                    "bfloat16": jnp.bfloat16,
-                    "mixed": "mixed",
-                }[cfg.resolve_mg_mode(cfg.ndof)],
-                fine_post_smooth=cfg.mg_fine_post,
-                interpret=not on_tpu,
-            )
-            if on_tpu:
-                from topopt_in_petsc_tpu.ops.pallas_hex import (
-                    make_pallas_quadform,
-                )
-
-                self._pallas_quadform = make_pallas_quadform(
-                    self.grid.nn, np.asarray(self.KE)
-                )
-            self.mg = None
-            self._step = jax.jit(self._step_impl)
-            self._solve = jax.jit(self._solve_impl, donate_argnums=(1,))
-            self._objective = jax.jit(self._objective_parts)
-            return
-        if impl == "pallas":
-            from topopt_in_petsc_tpu.ops.pallas_hex import (
-                make_pallas_hex_apply,
-                make_pallas_quadform,
-            )
-
-            self._pallas_apply = make_pallas_hex_apply(
-                self.grid.nn, np.asarray(self.KE)
-            )
-            # objective/sensitivity u^T KE u without the (nelem, 24)
-            # HBM transient of the XLA gather form
-            self._pallas_quadform = make_pallas_quadform(
-                self.grid.nn, np.asarray(self.KE)
-            )
-            # with rediscretized coarsening every MG level is the same
-            # hex-operator form, so coarse-level smoothing can ride the
-            # kernel too.  Measured: that wins ~25% at <=129^3 solves
-            # (1.97 -> 1.49 s at 128^3) but consistently LOSES at 257^3
-            # (14.1 -> 14.8-17.8 s depending on the level mix — XLA
-            # schedules the big program worse around the extra custom
-            # calls), so coarse-level kernels are enabled only for
-            # fine grids <= 129^3; tiny levels always stay XLA
-            coarse_kernels = min(self.grid.nn) <= 129
-            level_applies = [self._pallas_apply] + [
-                make_pallas_hex_apply(g.nn, KEs[l])
-                if coarse_kernels
-                and cfg.coarse_op != "galerkin_octant"
-                and min(g.nn) >= 17
-                else None
-                for l, g in enumerate(grids)
-                if l > 0
-            ]
-
-        if cfg.resolve_mg_mode(cfg.ndof) == "mixed":
-            print(
-                "warning: -mg_dtype mixed needs the blocked solver "
-                f"(operator_impl={impl}); running a pure-f32 V-cycle "
-                "instead — the memory lever is OFF on this path",
-                file=sys.stderr,
-            )
         N_np, RHS_np = build_cantilever_bc(self.grid)
         self.N = jnp.asarray(N_np, dtype=self.dtype)
         self.RHS = jnp.asarray(RHS_np, dtype=self.dtype)
@@ -223,26 +111,22 @@ class LinearElasticity:
             dof=3,
             dtype=self.dtype,
             smooth_sweeps=cfg.smooth_sweeps,
-            cheby_lower=cfg.resolve_cheby_lower(cfg.ndof),
+            cheby_lower=cfg.cheby_lower,
             cheby_upper=cfg.cheby_upper,
             coarse_rtol=cfg.coarse_rtol,
             coarse_maxit=cfg.coarse_maxit,
             precise_dots=cfg.precise_dots,
             coarse_op=cfg.coarse_op,
-            # "mixed" is a blocked-solver mode (per-level dtypes); the
-            # nodal fallback runs its V-cycle f32 in that case
             precond_dtype=(
-                jnp.bfloat16
-                if cfg.resolve_mg_mode(cfg.ndof) == "bfloat16"
-                else None
+                jnp.bfloat16 if cfg.mg_dtype == "bfloat16" else None
             ),
-            level_applies=level_applies,
+            fine_apply=fine_apply,
         )
 
         self._step = jax.jit(self._step_impl)
         # donate the warm-start buffer into the solution (the caller
         # replaces its reference with res.u): saves one full nodal
-        # vector of HBM, which matters at 256^3+ single-chip
+        # vector of device memory
         self._solve = jax.jit(self._solve_impl, donate_argnums=(1,))
         self._objective = jax.jit(self._objective_parts)
 
@@ -255,50 +139,17 @@ class LinearElasticity:
     # -- state solve --------------------------------------------------- #
 
     def mask_args(self):
-        """Per-level Dirichlet masks for the jit boundary (None on the
-        blocked path, which uses on-the-fly row predicates)."""
-        mg = self.mg
-        return None if mg is None else mg.mask_args()
+        """Per-level Dirichlet masks for the jit boundary."""
+        return self.mg.mask_args()
 
     def _solve_impl(self, xPhys, u0, rhs, masks):
-        # rhs/masks arrive as jit ARGUMENTS: closing over them would bake
-        # (nx,ny,nz,3)-sized constants into the XLA program (hundreds of
-        # MB at 256^3+, which breaks compilation).
+        # rhs/masks arrive as jit ARGUMENTS: closing over them would
+        # embed (nx,ny,nz,3)-sized constants (hundreds of MB at 256^3+)
+        # in the compiled program.
         cfg = self.cfg
         E = self.simp(xPhys.astype(self.dtype))
-        if self._bsolver is not None:
-            # blocked-resident path: vectors live in the kernel layout
-            # for the whole solve (solvers/blocked_mg.py); the rhs
-            # argument is ignored — the cantilever load is built from
-            # index predicates (no nodal transient)
-            op0 = self._bsolver.ops[0]
-            b = op0.cantilever_rhs(dtype=jnp.float32)
-            x0 = op0.mask0(op0.to_blocked(u0))
-            res = self._bsolver.solve(
-                E, b, x0,
-                rtol=cfg.ksp_rtol,
-                maxiter=cfg.ksp_maxit,
-                ksp_type=cfg.ksp_type,
-                gmres_restart=cfg.ksp_gmres_restart,
-            )
-            from topopt_in_petsc_tpu.solvers.cg import CGResult
-
-            return CGResult(
-                x=op0.from_blocked(res.x, self.dtype),
-                iters=res.iters,
-                relres=res.relres,
-            )
         levels = self.mg.setup(E, masks)
-        if self._pallas_apply is not None:
-            N = masks[0]
-            eb = levels[0]["fine_coef"]
-
-            def A(v):
-                Kv = self._pallas_apply.apply_prepared(N * v, eb)
-                return N * Kv + (1.0 - N) * v
-
-        else:
-            A = lambda v: self.mg.apply(0, E, v, masks)
+        A = lambda v: self.mg.apply(0, E, v, masks)
         M = self.mg.preconditioner(levels)
         if cfg.ksp_type == "fgmres":
             # the reference's own outer method (LinearElasticity.cc:638)
@@ -323,110 +174,13 @@ class LinearElasticity:
         )
         return res
 
-    def _chunk_size(self) -> int:
-        """Resolved -ksp_chunk: >0 chunk size, 0 disabled (the shared
-        auto rule, config.resolve_ksp_chunk; blocked path only)."""
-        return self.cfg.resolve_ksp_chunk(self.cfg.ndof)
-
-    def _ensure_chunk_jits(self):
-        """Per-stage programs for the host-chunked route.  Each runs as
-        its OWN program so no dead buffer is live at the solve's peak:
-        round 3's 512^3 RESOURCE_EXHAUSTED came from one program that
-        donated the nodal warm start into a different-layout blocked
-        output (unusable donation) while also building E and the RHS —
-        the dead (513,513,513,3) buffer is 1.6 GB against a ~1.3 GB
-        HBM margin."""
-        if hasattr(self, "_chunk_post"):
-            return
-        op0 = self._bsolver.op32
-        # nodal warm start -> masked blocked (the nodal buffer dies
-        # right here, before E/b/solver state exist)
-        self._chunk_x0_nodal = jax.jit(
-            lambda u: op0.mask0(op0.to_blocked(u))
-        )
-        # zero warm start built DIRECTLY in the kernel layout — no
-        # (nx,ny,nz,3) nodal field ever materializes
-        self._chunk_x0_zero = jax.jit(
-            lambda: jnp.zeros((3, op0.rows, op0.Lcp), jnp.float32)
-        )
-        # blocked warm start: same layout -> the donation ALIASES
-        self._chunk_x0_blocked = jax.jit(op0.mask0, donate_argnums=(0,))
-        # stable function object: _chunk_jits caches per (ksp, coef_fn)
-        self._simp_coef = lambda xp: self.simp(xp.astype(self.dtype))
-        self._chunk_post = jax.jit(
-            lambda xb: op0.from_blocked(xb, self.dtype)
-        )
-
-    def _chunk_warm_start(self, u0):
-        """Warm start for the chunked route, in the kernel layout.
-        Accepts None (zeros), a blocked (3, rows, Lcp) array (donated,
-        aliased), or a nodal (nx,ny,nz,3) field (converted in its own
-        program; the caller should drop its reference)."""
-        self._ensure_chunk_jits()
-        if u0 is None:
-            return self._chunk_x0_zero()
-        if u0.ndim == 3:
-            return self._chunk_x0_blocked(u0)
-        return self._chunk_x0_nodal(u0)
-
-    def _solve_state_chunked(self, xPhys, x0_blk, chunk: int):
-        """Host-chunked Krylov solve from a READY blocked warm start
-        (see _chunk_warm_start); returns the solution in the KERNEL
-        layout — callers convert via _chunk_post when they need the
-        nodal field."""
-        cfg = self.cfg
-        # SIMP and the cantilever load are applied/built INSIDE the
-        # init program (coef_fn / b=None): no standalone E (0.54 GB)
-        # or b (1.62 GB) arrays pinned next to xPhys at 512^3 — the
-        # margin that OOMed the fused iteration's solve leg
-        return self._bsolver.solve_chunked(
-            xPhys, None, x0_blk,
-            coef_fn=self._simp_coef,
-            rtol=cfg.ksp_rtol,
-            maxiter=cfg.ksp_maxit,
-            chunk=chunk,
-            ksp_type=cfg.ksp_type,
-            callback=(
-                (lambda k, rr: print(
-                    f"  {k:4d} KSP relative residual {rr:.6e}",
-                    flush=True,
-                ))
-                if cfg.ksp_monitor
-                else None
-            ),
-        )
-
-    def solve_state_blocked(self, xPhys, u0_blk):
-        """Chunked state solve fully in the kernel layout: blocked warm
-        start in (donated, aliased — same layout), blocked solution out.
-        The production giga-dof entry (parallel/fused_step.py chunked
-        route): no nodal (nx,ny,nz,3) buffer exists anywhere in the
-        solve."""
-        x0 = self._chunk_warm_start(u0_blk)
-        return self._solve_state_chunked(
-            xPhys, x0, self._chunk_size() or 32
-        )
-
     def solve_state(self, xPhys, u0=None):
         """SolveState (LinearElasticity.cc:182-223): re-'assemble' (set the
         element scale), rebuild the MG setup, solve with warm start.
 
         NOTE: the warm-start buffer `u0` is DONATED into the solution
-        (one nodal vector of HBM saved); it must not be used after the
+        (one nodal vector of device memory saved); it must not be used after the
         call — keep `res.x` instead (the driver does)."""
-        if self._bsolver is not None and self.cfg.ksp_type != "fgmres":
-            chunk = self._chunk_size()
-            if chunk:
-                x0 = self._chunk_warm_start(u0)
-                u0 = None  # nodal warm start is dead before the solve
-                res = self._solve_state_chunked(xPhys, x0, chunk)
-                from topopt_in_petsc_tpu.solvers.cg import CGResult
-
-                return CGResult(
-                    x=self._chunk_post(res.x),
-                    iters=res.iters,
-                    relres=res.relres,
-                )
         if u0 is None:
             u0 = jnp.zeros((*self.grid.nn, 3), dtype=self.dtype)
         return self._solve(xPhys, u0, self.RHS, self.mask_args())
@@ -435,10 +189,7 @@ class LinearElasticity:
 
     def _objective_parts(self, xPhys, u):
         cfg = self.cfg
-        if self._pallas_quadform is not None:
-            uKu = self._pallas_quadform(u)  # (ex, ey, ez)
-        else:
-            uKu = element_quadratic_form(u, self.KE)
+        uKu = element_quadratic_form(u, self.KE)  # (ex, ey, ez)
         E = self.simp(xPhys)
         # chunked accurate sums: no full-size f64 transients
         # (solvers/cg.accurate_sum)
@@ -480,14 +231,9 @@ class LinearElasticity:
         """ComputeObjectiveConstraintsSensitivities
         (LinearElasticity.cc:363-445).
 
-        Runs as TWO programs (solve, then objective): the fused
-        single-program version (_step_impl, used by the SPMD/fused-step
-        paths) adds the (nelem, 24) objective gather on top of the
-        solver's peak buffers and OOMs one chip at 256^3.
-
-        The solve goes through solve_state so the chunked route
-        (-ksp_chunk, mandatory at giga-dof sizes — this backend kills
-        long device executions) applies to the Driver's path too."""
+        Runs as TWO programs (solve, then objective), so the objective's
+        (nelem, 24) gather never sits on top of the solver's peak
+        buffers; the fused step (_step_impl) traces both into one."""
         res = self.solve_state(xPhys, u0)
         fx, gx, dfdx, dgdx = self._objective(
             xPhys.astype(self.dtype), res.x

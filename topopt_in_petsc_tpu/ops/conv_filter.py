@@ -1,9 +1,9 @@
 """Density-filter convolution backends.
 
 The filter operator H (Filter.cc:404-440) is a dense (2s+1)^3 hat-kernel
-convolution.  XLA's direct 3D single-channel convolution lowers terribly
-on TPU for large kernels (measured 3.1 s for s=9 at 128^3 — ~1000x off
-roofline), so two backends are provided:
+convolution.  XLA's direct 3D single-channel convolution costs
+O((2s+1)^3) per element, which grows quickly with the stencil, so two
+backends are provided:
 
 - "direct": lax.conv_general_dilated — fine for small stencils,
 - "fft": zero-padded real-FFT convolution — exact linear convolution,
@@ -42,9 +42,9 @@ def next_smooth(n: int) -> int:
 
     Zero-padded linear convolution is exact for ANY transform size >=
     (signal + kernel - 1), so padding up to a smooth size is free
-    correctness-wise and buys real speed: the exact filter sizes at
-    384^3/512^3 (444 = 2^2*3*37, 592 = 2^4*37) carry a radix-37 factor
-    through the TPU FFT.
+    correctness-wise and avoids large prime radices: the exact filter
+    sizes at 384^3/512^3 (444 = 2^2*3*37, 592 = 2^4*37) carry a
+    radix-37 factor.
     """
     m = max(int(n), 1)
     while True:
@@ -92,10 +92,9 @@ def make_fft_conv(
         KF = _sfft.rfftn(k, workers=-1)
     except ImportError:  # pragma: no cover
         KF = np.fft.rfftn(k)
-    # the spectrum travels as REAL arrays: complex constants embedded
-    # in compiled programs are UNIMPLEMENTED on this TPU backend (and
-    # large closures should be arguments anyway); callers thread `consts`
-    # through their jit boundaries.  The hat kernel is EVEN-symmetric
+    # the spectrum travels as REAL arrays that callers thread through
+    # their jit boundaries as arguments (large closures would be
+    # embedded in the program as constants).  The hat kernel is EVEN-symmetric
     # (k[-i]=k[i] mod full after the center shift), so its DFT is real:
     # store only the real part — halves the resident spectrum (0.86 ->
     # 0.43 GB at 512^3) and turns the spectral product into a

@@ -1,6 +1,6 @@
 """Matrix-free structured-grid hex FEM operator.
 
-TPU-native replacement for the reference's assembled sparse stiffness matrix
+JAX replacement for the reference's assembled sparse stiffness matrix
 and its SpMV: instead of MatSetValuesLocal element assembly + MatMult
 (LinearElasticity.cc:487-549, 204), we express `K(x) @ u` directly as
 
@@ -10,13 +10,16 @@ and its SpMV: instead of MatSetValuesLocal element assembly + MatMult
        DMDAGetElements_3D helper has no equivalent here),
     2. *matmul*  — one large ``(nelem, 8*dof) x (8*dof, 8*dof)`` contraction
        against the constant element matrix with the per-element SIMP scale
-       fused in (runs on the MXU),
+       fused in,
     3. *scatter* — 8 static shifted `.at[...].add` updates accumulate corner
-       forces back to nodes (pure adds of disjoint slabs per corner; no
-       atomics, TPU-safe).
+       forces back to nodes (pure adds of disjoint slabs per corner).
 
-Halo exchange: under `jit` with sharded inputs, XLA GSPMD inserts the
-neighbor collectives these shifted slices imply — the explicit
+This is the plain reference form and the CPU path; on a GPU the fused
+node-centric kernel of ops/hex_triton.py replaces it for float32 solves
+(ops/select.py).
+
+Halo exchange: the SPMD engine (parallel/spmd.py) completes the local
+result across device blocks with explicit ppermute plane exchanges — the
 DMGlobalToLocal ghost exchange of the reference (LinearElasticity.cc:249).
 
 All functions are shape-polymorphic in dof (3 for elasticity, 1 for the
@@ -86,9 +89,8 @@ def apply_hex_operator(
     """
     ue = gather_element_dofs(u)
     # Scale before the contraction: scalar per element commutes with KE.
-    # precision HIGHEST: TPU matmuls default to bf16 inputs, which is fine
-    # for preconditioner-side applications but not for the outer Krylov
-    # residual; callers wanting the fast path pass precision explicitly.
+    # precision HIGHEST: a float32 product may otherwise run in TF32
+    # (~1e-3 relative error), too coarse for the outer Krylov residual.
     fe = jnp.einsum(
         "...i,ij->...j",
         ue * scale[..., None],
@@ -128,9 +130,8 @@ def hex_operator_absrowsum(
 
     Equivalent to `apply_hex_operator(ones, scale, |KE|)` but as an 8-tap
     stencil on the element scale (row sums of |KE| are constants), with
-    no (nelem, 8*dof) gather transient: at 512^3 the gather form cannot
-    even compile, and per-solve setup drops from ~52 ms to ~5 ms at
-    256^3.  Requires scale >= 0 (SIMP scales are)."""
+    no (nelem, 8*dof) gather transient.  Requires scale >= 0 (SIMP scales
+    are)."""
     dof = KE.shape[0] // 8
     ke_rows = jnp.sum(jnp.abs(KE), axis=1).reshape(8, dof)  # (corner, dof)
     ex, ey, ez = scale.shape
@@ -211,129 +212,6 @@ def hex_operator_diagonal_octant(
             "p...,pd->...d", octants, ke_diag[:, c, :]
         )
         out = out.at[ox : ox + ex, oy : oy + ey, oz : oz + ez].add(contrib)
-    return out
-
-
-def _shift_nodal(u: jax.Array, d: tuple[int, int, int]) -> jax.Array:
-    """v[n] = u[n + d] with zero padding, d in {-1,0,1}^3."""
-    pads = []
-    slices = []
-    for a in range(3):
-        if d[a] == 1:
-            slices.append(slice(1, None))
-            pads.append((0, 1))
-        elif d[a] == -1:
-            slices.append(slice(0, -1))
-            pads.append((1, 0))
-        else:
-            slices.append(slice(None))
-            pads.append((0, 0))
-    v = u[tuple(slices)]
-    return jnp.pad(v, pads + [(0, 0)] * (u.ndim - 3))
-
-
-def _corner_pad_elem(E: jax.Array, corner: int) -> jax.Array:
-    """Element field placed on the node grid at a hex corner:
-    Ea[n] = E[n - offset_a] (zero where no such element)."""
-    off = CORNER_OFFSETS[corner]
-    pads = [(off[a], 1 - off[a]) for a in range(3)]
-    return jnp.pad(E, pads)
-
-
-def apply_hex_operator_stencil(
-    u: jax.Array,
-    scale: jax.Array,
-    KE: jax.Array,
-    precision=jax.lax.Precision.HIGHEST,
-) -> jax.Array:
-    """Node-centric 27-point block-stencil form of `apply_hex_operator`.
-
-    out[n] = sum_d W_d(n) @ u[n+d], with the 3x3 (or 1x1) blocks
-    W_d(n) = sum_{(a,b): off_b - off_a = d} scale(n - off_a) KE[a-block, b-block]
-    built on the fly from the element scale — a gather-only formulation
-    (no scatter, no (nelem, 24) intermediates), which is the TPU-friendly
-    shape: 27 shifted elementwise fused multiply-adds over full nodal
-    arrays (SURVEY §7.1 'node-centric 27-point block stencil').
-
-    Equivalent to `apply_hex_operator` to rounding.
-    """
-    dof = u.shape[-1]
-    KEb = KE.reshape(8, dof, 8, dof).transpose(0, 2, 1, 3)  # (a,b,i,j)
-    Ea = [_corner_pad_elem(scale, a) for a in range(8)]
-
-    # group (a, b) pairs by node offset d = off_b - off_a
-    groups: dict = {}
-    for a, oa in enumerate(CORNER_OFFSETS):
-        for b, ob in enumerate(CORNER_OFFSETS):
-            d = (ob[0] - oa[0], ob[1] - oa[1], ob[2] - oa[2])
-            groups.setdefault(d, []).append((a, b))
-
-    out = jnp.zeros_like(u)
-    for d, pairs in groups.items():
-        us = _shift_nodal(u, d)  # (nx, ny, nz, dof)
-        # W_d: (nx, ny, nz, dof, dof), built from <=8 scale pads
-        W = None
-        for a, b in pairs:
-            term = Ea[a][..., None, None] * KEb[a, b]
-            W = term if W is None else W + term
-        out = out + jnp.einsum(
-            "...ij,...j->...i",
-            W,
-            us,
-            preferred_element_type=u.dtype,
-            precision=precision,
-        )
-    return out
-
-
-def apply_hex_operator_dofmajor(
-    u: jax.Array, scale: jax.Array, KE: jax.Array
-) -> jax.Array:
-    """64-term corner-pair form in dof-major layout: pure
-    scalar-coefficient fused multiply-adds over (nx, ny, nz) slabs.
-
-    u: (nx, ny, nz, dof) — transposed to (dof, nx, ny, nz) internally so
-    the minor dimension is the z-axis (good 128-lane utilization; the
-    dof-minor layout wastes 125/128 lanes and the (dof,dof) einsum form
-    trips a backend bug).  Same math as `apply_hex_operator`.
-    """
-    dof = u.shape[-1]
-    KEb = np.asarray(KE).reshape(8, dof, 8, dof).transpose(0, 2, 1, 3)
-    u3 = jnp.moveaxis(u, -1, 0)  # (dof, nx, ny, nz)
-    Ea = [_corner_pad_elem(scale, a) for a in range(8)]
-
-    outs = [None] * dof
-    for a, oa in enumerate(CORNER_OFFSETS):
-        for b, ob in enumerate(CORNER_OFFSETS):
-            d = (ob[0] - oa[0], ob[1] - oa[1], ob[2] - oa[2])
-            us = [
-                _shift_nodal(u3[j], d) for j in range(dof)
-            ]
-            for i in range(dof):
-                lin = None
-                for j in range(dof):
-                    kij = float(KEb[a, b, i, j])
-                    if kij == 0.0:
-                        continue
-                    term = kij * us[j]
-                    lin = term if lin is None else lin + term
-                if lin is None:
-                    continue
-                contrib = Ea[a] * lin
-                outs[i] = contrib if outs[i] is None else outs[i] + contrib
-    return jnp.moveaxis(jnp.stack(outs), 0, -1)
-
-
-def hex_operator_diagonal_stencil(
-    scale: jax.Array, KE: jax.Array, nn: tuple[int, int, int]
-) -> jax.Array:
-    """diag(K) via corner pads (same math as hex_operator_diagonal)."""
-    dof = KE.shape[0] // 8
-    ke_diag = jnp.diagonal(KE).reshape(8, dof)
-    out = None
-    for a in range(8):
-        term = _corner_pad_elem(scale, a)[..., None] * ke_diag[a]
-        out = term if out is None else out + term
     return out
 
 

@@ -1,6 +1,6 @@
 """Parallel Method of Moving Asymptotes with dual interior-point solver.
 
-TPU-native re-implementation of the reference MMA class (MMA.{h,cc}), the
+JAX re-implementation of the reference MMA class (MMA.{h,cc}), the
 distributed MMA of Aage & Lazarov (2013), SMO 47(4):493-505:
 
   per Update (MMA.cc:499-518):
@@ -106,9 +106,7 @@ class MMA:
         self.y = jnp.zeros((m,), dtype=dtype)
         self.z = jnp.asarray(0.0, dtype=dtype)
 
-        self._jit_update = jax.jit(
-            self._update_impl, static_argnames=("fresh_asymptotes",)
-        )
+        self._jit_update = jax.jit(self._update_impl)
         self._jit_movelimit = jax.jit(self._movelimit_impl)
         self._jit_change = jax.jit(self._design_change_impl)
 
@@ -185,7 +183,7 @@ class MMA:
             self.state.U,
             self.state.xo1,
             self.state.xo2,
-            fresh_asymptotes=bool(fresh),
+            fresh_asymptotes=jnp.asarray(fresh),
         )
         self.state = MMAState(
             L=L, U=U, xo1=x, xo2=self.state.xo1, k=self.state.k + 1
@@ -197,33 +195,35 @@ class MMA:
     # Subproblem generation (GenSub, MMA.cc:522-649)
 
     def _gensub(self, x, dfdx, gx, dgdx, xmin, xmax, L, U, xo1, xo2,
-                fresh_asymptotes: bool):
+                fresh_asymptotes):
+        """`fresh_asymptotes` is a boolean scalar (traced or not), so one
+        compiled program serves every iteration."""
         dt = self.dtype
-        if fresh_asymptotes:
-            L = x - self.asyminit * (xmax - xmin)
-            U = x + self.asyminit * (xmax - xmin)
-        else:
-            helpvar = (x - xo1) * (xo1 - xo2)
-            gamma = jnp.where(
-                helpvar < 0.0,
-                self.asymdec,
-                jnp.where(helpvar > 0.0, self.asyminc, 1.0),
-            ).astype(dt)
-            L = x - gamma * (xo1 - L)
-            U = x + gamma * (U - xo1)
-            xmi = jnp.maximum(1.0e-5, xmax - xmin)
-            if self.robust_type == 0:
-                L = jnp.clip(L, x - 10.0 * xmi, x - 0.01 * xmi)
-                U = jnp.clip(U, x + 0.01 * xmi, x + 10.0 * xmi)
-            else:  # type 1 (MMA.cc:574-589)
-                L = jnp.clip(L, x - 100.0 * xmi, x - 1.0e-4 * xmi)
-                U = jnp.clip(U, x + 1.0e-4 * xmi, x + 100.0 * xmi)
-                xlo = xmin - 1.0e-5
-                xhi = xmax + 1.0e-5
-                L = jnp.where(x < xlo, x - (xhi - x) / 0.9, L)
-                U = jnp.where(x < xlo, x + (xhi - x) / 0.9, U)
-                L = jnp.where(x > xhi, x - (x - xlo) / 0.9, L)
-                U = jnp.where(x > xhi, x + (x - xlo) / 0.9, U)
+        helpvar = (x - xo1) * (xo1 - xo2)
+        gamma = jnp.where(
+            helpvar < 0.0,
+            self.asymdec,
+            jnp.where(helpvar > 0.0, self.asyminc, 1.0),
+        ).astype(dt)
+        La = x - gamma * (xo1 - L)
+        Ua = x + gamma * (U - xo1)
+        xmi = jnp.maximum(1.0e-5, xmax - xmin)
+        if self.robust_type == 0:
+            La = jnp.clip(La, x - 10.0 * xmi, x - 0.01 * xmi)
+            Ua = jnp.clip(Ua, x + 0.01 * xmi, x + 10.0 * xmi)
+        else:  # type 1 (MMA.cc:574-589)
+            La = jnp.clip(La, x - 100.0 * xmi, x - 1.0e-4 * xmi)
+            Ua = jnp.clip(Ua, x + 1.0e-4 * xmi, x + 100.0 * xmi)
+            xlo = xmin - 1.0e-5
+            xhi = xmax + 1.0e-5
+            La = jnp.where(x < xlo, x - (xhi - x) / 0.9, La)
+            Ua = jnp.where(x < xlo, x + (xhi - x) / 0.9, Ua)
+            La = jnp.where(x > xhi, x - (x - xlo) / 0.9, La)
+            Ua = jnp.where(x > xhi, x + (x - xlo) / 0.9, Ua)
+        # fresh asymptotes while k < 3 (MMA.cc:532-537)
+        span = self.asyminit * (xmax - xmin)
+        L = jnp.where(fresh_asymptotes, x - span, La)
+        U = jnp.where(fresh_asymptotes, x + span, Ua)
 
         alpha = jnp.maximum(xmin, 0.9 * L + 0.1 * x)
         beta = jnp.minimum(xmax, 0.9 * U + 0.1 * x)
@@ -398,7 +398,7 @@ class MMA:
     # -------------------------------------------------------------- #
 
     def _update_impl(self, x, dfdx, gx, dgdx, xmin, xmax, L, U, xo1, xo2,
-                     *, fresh_asymptotes: bool):
+                     fresh_asymptotes):
         sub = self._gensub(
             x, dfdx, gx, dgdx, xmin, xmax, L, U, xo1, xo2,
             fresh_asymptotes,

@@ -1,6 +1,6 @@
 """Helmholtz PDE filter: (-R^2 lap + I) u_tilde = T x, xTilde = T^T u_tilde.
 
-TPU-native equivalent of the reference PDEFilt class (PDEFilter.{h,cc}).
+JAX equivalent of the reference PDEFilt class (PDEFilter.{h,cc}).
 R = rmin / (2 sqrt(3)) converts the convolution radius to the Helmholtz
 length scale (PDEFilter.cc:30).  The reference assembles a nodal Helmholtz
 matrix K, a rectangular element->node map T with 1/8 weights, and solves
@@ -49,29 +49,6 @@ class PDEFilter:
         KFs = [
             helmholtz_element_matrices(*g.h, self.R)[0] for g in grids
         ]
-        # dof=1 Pallas operator on TPU (same policy as elasticity:
-        # "auto" -> pallas on TPU hardware; coarse levels size-gated)
-        impl = cfg.operator_impl
-        if impl == "auto":
-            impl = (
-                "pallas"
-                if jax.devices()[0].platform == "tpu"
-                else "xla"
-            )
-        level_applies = None
-        if impl == "pallas":
-            from topopt_in_petsc_tpu.ops.pallas_hex import (
-                make_pallas_helmholtz_apply,
-            )
-
-            coarse_kernels = min(grid.nn) <= 129
-            level_applies = [
-                make_pallas_helmholtz_apply(g.nn, KFs[l])
-                if l == 0
-                or (coarse_kernels and min(g.nn) >= 17)
-                else None
-                for l, g in enumerate(grids)
-            ]
         self.mg = GeometricMultigrid(
             grids,
             KFs,
@@ -82,7 +59,6 @@ class PDEFilter:
             coarse_rtol=1e-8,
             coarse_maxit=10,
             precise_dots=cfg.precise_dots,
-            level_applies=level_applies,
         )
         # Density-independent operator: one-time MG setup with unit scale.
         ones = jnp.ones(grid.ne, dtype=self.dtype)

@@ -1,6 +1,6 @@
 """Overlapping-block domain decomposition for the SPMD halo engine.
 
-This is the TPU equivalent of PETSc's DMDA ownership layout
+This is the JAX equivalent of PETSc's DMDA ownership layout
 (TopOpt.cc:233-291): the global element grid (ex, ey, ez) splits evenly
 over the device mesh (mx, my, mz); each device owns the element block
 (ex/mx, ey/my, ez/mz) and carries the *overlapping* nodal block

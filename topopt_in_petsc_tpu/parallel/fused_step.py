@@ -5,18 +5,17 @@ objective/sensitivities, filter chain rule, movelimits, MMA dual solve,
 design filtering — traced into ONE XLA program, so a sharded invocation
 partitions every stage over the same device mesh with no host round-trips.
 The interactive Driver keeps stages separate for logging/cadence control;
-this fused step is the production hot loop and the multi-chip
+this fused step is the production hot loop and the multi-device
 compile-validation path (`__graft_entry__.dryrun_multichip`).
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from topopt_in_petsc_tpu.config import TopOptConfig
 from topopt_in_petsc_tpu.grid import Grid
@@ -50,18 +49,19 @@ def make_fused_step(cfg: TopOptConfig, mesh=None, return_aux: bool = False):
     FusedDriver needs the filter for host-side beta re-projection).
     step_fn: (OptState, itr) -> OptState.
 
-    `itr` (1-based, like main.cc:54's counter) selects among three
-    compiled variants matching the reference's first-iteration semantics:
-    itr == 1 sets fscale = 10/fx (main.cc:68-73), itr <= 2 uses fresh
-    asymptotes (GenSub k<3, MMA.cc:532-537).  This keeps fused-step
-    trajectories identical to the interactive Driver's from iteration 1.
+    `itr` (1-based, like main.cc:54's counter) is a traced argument of
+    one compiled program and carries the reference's first-iteration
+    semantics: itr == 1 sets fscale = 10/fx (main.cc:68-73), itr <= 2
+    uses fresh asymptotes (GenSub k<3, MMA.cc:532-537).  This keeps
+    fused-step trajectories identical to the interactive Driver's from
+    iteration 1.
 
     If `mesh` is given, init_state arrays are device_put with the canonical
     GSPMD shardings (element fields P('x','y','z'), nodal replicated).
     NOTE: the GSPMD path is a compile-validation convenience, not the
     scaling path — nodal fields have odd extents and replicate at jit
     boundaries, so only element-field work actually shards.  Production
-    multi-chip scaling is the shard_map engine (parallel/spmd_model.py).
+    multi-device scaling is the shard_map engine (parallel/spmd_model.py).
     """
     cfg.validate()
     grid = Grid.from_config(cfg)
@@ -80,52 +80,22 @@ def make_fused_step(cfg: TopOptConfig, mesh=None, return_aux: bool = False):
     filt_consts = (filt.Hs, filt._fft_consts)
 
     # rhs/masks/filter constants flow as jit arguments (large-array
-    # closures become XLA constants, which breaks compilation at 256^3+,
-    # and complex constants are UNIMPLEMENTED on this backend)
-    # The post-solve tail (objective, filter chain rule, MMA, design
-    # filter) is written as head+rest so the chunked route can run it
-    # as ONE program (`tail`, the default) or TWO (`-tail_split`:
-    # objective+gradients, then MMA+project — smaller programs, and
-    # the MMA dual solve never coexists with the quadform transients).
+    # closures would be embedded in the program as constants)
 
-    def tail_head(s: OptState, filt_consts, *, first_iter: bool,
-                  u_blocked: bool):
-        """Objective + sensitivity chain rule from the fresh solution.
-
-        With u_blocked=True, `s.u` holds the solution in the solver's
-        kernel layout; the nodal field needed by the u^T KE u quadratic
-        form exists only as a TRANSIENT inside this program (XLA frees
-        it after the quadform) — at 512^3 that keeps the dead 1.6 GB
-        (513,513,513,3) buffer out of the solve's peak HBM entirely.
-
-        Hs may arrive as None (the parked giga-dof route): the filter
-        RECOMPUTES the ones-conv in-program (opt/filters.py) — ~0.2 s
-        at 512^3 vs re-uploading 0.54 GB over the slow host link."""
-        Hs, fft_consts = filt_consts
-        if u_blocked:
-            u = physics._bsolver.op32.from_blocked(s.u, physics.dtype)
-        else:
-            u = s.u
+    def step(s: OptState, rhs, masks, filt_consts, itr) -> OptState:
+        res = physics._solve_impl(s.xPhys, s.u, rhs, masks)
+        u = res.x
         fx, gx, dfdx, dgdx = physics._objective_parts(
             s.xPhys.astype(physics.dtype), u
         )
         # objective auto-scale at the first iteration (main.cc:68-73)
-        fscale = (10.0 / fx if first_iter else s.fscale).astype(dt)
+        fscale = jnp.where(itr == 1, 10.0 / fx, s.fscale).astype(dt)
         dfdx = dfdx * fscale
         dfdx, dgdx = filt._gradients_impl(
-            s.x, s.xTilde, dfdx, dgdx, s.beta, eta, Hs,
-            fft_consts, projection=projection,
+            s.x, s.xTilde, dfdx, dgdx, s.beta, eta, *filt_consts,
+            projection=projection,
         )
-        # u returned only on the nodal path (the blocked path keeps
-        # s.u; returning the nodal transient would materialize it)
-        return fx, gx, fscale, dfdx, dgdx, (None if u_blocked else u)
-
-    def tail_rest(s: OptState, iters, relres, filt_consts,
-                  fx, gx, fscale, dfdx, dgdx, u=None, *,
-                  fresh_asymptotes: bool,
-                  u_blocked: bool) -> OptState:
-        """Movelimits + MMA dual solve + design filter/projection."""
-        Hs, fft_consts = filt_consts
+        # movelimits + MMA dual solve + design filter/projection
         xmin, xmax = mma._movelimit_impl(
             s.x,
             jnp.asarray(cfg.Xmin, dt),
@@ -135,64 +105,22 @@ def make_fused_step(cfg: TopOptConfig, mesh=None, return_aux: bool = False):
         x_new, L, U, lam, y, z = mma._update_impl(
             s.x, dfdx, gx, dgdx, xmin, xmax,
             s.L, s.U, s.xo1, s.xo2,
-            fresh_asymptotes=fresh_asymptotes,
+            itr <= 2,
         )
         ch = jnp.max(jnp.abs(x_new - s.x))
         xTilde, xPhys = filt._project_impl(
-            x_new, s.beta, eta, Hs, fft_consts,
-            projection=projection,
+            x_new, s.beta, eta, *filt_consts, projection=projection,
         )
         mnd = jnp.mean(4.0 * xPhys * (1.0 - xPhys))
         return OptState(
-            x=x_new, xTilde=xTilde, xPhys=xPhys,
-            u=s.u if u_blocked else u,
+            x=x_new, xTilde=xTilde, xPhys=xPhys, u=u,
             L=L, U=U, xo1=s.x, xo2=s.xo1,
-            fscale=fscale, beta=s.beta, fx=fx, gx=gx, ch=ch,
-            mnd=mnd,
-            solver_iters=iters, solver_relres=relres,
+            fscale=fscale, beta=s.beta, fx=fx, gx=gx, ch=ch, mnd=mnd,
+            solver_iters=res.iters, solver_relres=res.relres,
         )
-
-    def tail(s: OptState, iters, relres, filt_consts, *,
-             first_iter: bool, fresh_asymptotes: bool,
-             u_blocked: bool = False) -> OptState:
-        fx, gx, fscale, dfdx, dgdx, u = tail_head(
-            s, filt_consts, first_iter=first_iter, u_blocked=u_blocked
-        )
-        return tail_rest(
-            s, iters, relres, filt_consts, fx, gx, fscale, dfdx, dgdx,
-            u, fresh_asymptotes=fresh_asymptotes, u_blocked=u_blocked,
-        )
-
-    def step(s: OptState, rhs, masks, filt_consts, *,
-             first_iter: bool, fresh_asymptotes: bool) -> OptState:
-        res = physics._solve_impl(s.xPhys, s.u, rhs, masks)
-        return tail(
-            s._replace(u=res.x), res.iters, res.relres, filt_consts,
-            first_iter=first_iter, fresh_asymptotes=fresh_asymptotes,
-        )
-
-    # chunked route decision up front: when the solve must be
-    # host-stepped (the backend's ~1-2-minute execution kill at
-    # giga-dof sizes — models/elasticity._chunk_size), OptState.u holds
-    # the state field in the solver's KERNEL layout end-to-end and the
-    # init state never materializes a nodal (nx,ny,nz,3) buffer
-    # (1.6 GB dead weight at 513^3).
-    chunk = 0
-    if (mesh is None and physics._bsolver is not None
-            and cfg.ksp_type != "fgmres"):
-        chunk = physics._chunk_size()
 
     x0 = jnp.full(grid.ne, cfg.volfrac, dtype=dt)
-    if chunk > 0:
-        op0 = physics._bsolver.op32
-        u0 = jnp.zeros((3, op0.rows, op0.Lcp), jnp.float32)
-        u_to_nodal = jax.jit(
-            lambda ub: op0.from_blocked(ub, physics.dtype)
-        )
-        u_from_nodal = jax.jit(lambda u: op0.to_blocked(u))
-    else:
-        u0 = jnp.zeros((*grid.nn, 3), dtype=dt)
-        u_to_nodal = u_from_nodal = lambda u: u
+    u0 = jnp.zeros((*grid.nn, 3), dtype=dt)
     # pre-populated asymptotes (the fused step always runs the adaptive
     # k>2 branch; the Driver handles the first two iterations)
     span = cfg.Xmax - cfg.Xmin
@@ -237,261 +165,27 @@ def make_fused_step(cfg: TopOptConfig, mesh=None, return_aux: bool = False):
             solver_iters=rs, solver_relres=rs,
         )
         init = jax.tree_util.tree_map(jax.device_put, init, shardings)
-        if rhs is not None:
-            rhs = jax.device_put(rhs, ns)
-        else:
-            ns = None  # blocked solver: rhs built on the fly
-
-        if masks is not None:
-            masks = [jax.device_put(m, rs) for m in masks]
-            mask_shardings = [rs for _ in masks]
-        else:  # blocked solver: on-the-fly masks, nothing to shard
-            mask_shardings = None
+        rhs = jax.device_put(rhs, ns)
+        masks = [jax.device_put(m, rs) for m in masks]
+        mask_shardings = [rs for _ in masks]
         fc_shardings = jax.tree_util.tree_map(
             lambda _: rs, filt_consts
         )
         filt_consts = jax.tree_util.tree_map(
             lambda a: jax.device_put(a, rs), filt_consts
         )
-        inner = {
-            key: jax.jit(
-                partial(
-                    step, first_iter=key[0], fresh_asymptotes=key[1]
-                ),
-                in_shardings=(shardings, ns, mask_shardings,
-                              fc_shardings),
-                out_shardings=shardings,
-            )
-            for key in ((True, True), (False, True), (False, False))
-        }
+        inner = jax.jit(
+            step,
+            in_shardings=(shardings, ns, mask_shardings, fc_shardings,
+                          rs),
+            out_shardings=shardings,
+        )
     else:
-        # chunked route: when the solve must be host-stepped (the
-        # backend's ~1-2-minute execution kill at giga-dof sizes —
-        # models/elasticity._chunk_size), the iteration runs as
-        # solve_state_blocked (host-chunked Krylov, identical trajectory
-        # via PCGState, warm start AND solution in the kernel layout) +
-        # the `tail` program; otherwise one fused program.
-        if chunk > 0:
-            # Donation layout (hardware-bisected, round 5): donating
-            # the WHOLE state triggers a backend INVALID_ARGUMENT at
-            # >= 384^3 (runs/probe_fused_384_fast.log fails, the
-            # donation-free variant runs green — every tail component
-            # is green standalone).  The donated state contained
-            # IDENTITY input->output aliases (u -> u, x -> xo1,
-            # xo1 -> xo2, beta/fscale passthroughs); restructure so
-            # those leaves are NOT program outputs at all — the host
-            # reattaches the original arrays (copy-free, bit-identical)
-            # — and only the genuinely-consumed element fields
-            # (xTilde, xPhys, L, U, xo2) are donated, which keeps the
-            # full buffer-reuse benefit at 512^3 (5 dying fields alias
-            # the 5 fresh outputs).  TOPOPT_NO_DONATE_TAIL=1 disables
-            # even that (diagnostic).
-            import os as _os
-
-            _donate = not _os.environ.get("TOPOPT_NO_DONATE_TAIL")
-            DON = ("xTilde", "xPhys", "L", "U", "xo2")
-            OUT = ("x", "xTilde", "xPhys", "L", "U", "fscale",
-                   "fx", "gx", "ch", "mnd")
-
-            def tail_prog(kept, don, iters, relres, fc, *,
-                          first_iter, fresh_asymptotes):
-                s = OptState(**kept, **don)
-                out = tail(
-                    s, iters, relres, fc, first_iter=first_iter,
-                    fresh_asymptotes=fresh_asymptotes, u_blocked=True,
-                )
-                return {f: getattr(out, f) for f in OUT}
-
-            inner = {
-                key: jax.jit(
-                    partial(
-                        tail_prog, first_iter=key[0],
-                        fresh_asymptotes=key[1],
-                    ),
-                    donate_argnums=(1,) if _donate else (),
-                )
-                for key in ((True, True), (False, True), (False, False))
-            }
-            if cfg.tail_split:
-                # two-program tail: head reuses s (no donation), rest
-                # donates s plus the gradient fields (they die there)
-                head_jits = {
-                    fi: jax.jit(
-                        partial(
-                            tail_head, first_iter=fi, u_blocked=True
-                        )
-                    )
-                    for fi in (True, False)
-                }
-                rest_jits = {
-                    fa: jax.jit(
-                        partial(
-                            tail_rest, fresh_asymptotes=fa,
-                            u_blocked=True,
-                        ),
-                        # donate only the consumed gradients — donating
-                        # the state's identity passthroughs triggers
-                        # the >=384^3 backend INVALID_ARGUMENT
-                        # (runs/probe_fused_384_split.log)
-                        donate_argnums=(7, 8) if _donate else (),
-                    )
-                    for fa in (True, False)
-                }
-
-                def _tail_split_call(key, kept, don, iters, relres,
-                                     fc):
-                    s = OptState(**kept, **don)
-                    fx, gx, fscale, dfdx, dgdx, _ = head_jits[key[0]](
-                        s, fc
-                    )
-                    out = rest_jits[key[1]](
-                        s, iters, relres, fc, fx, gx, fscale, dfdx,
-                        dgdx,
-                    )
-                    return {f: getattr(out, f) for f in OUT}
-
-                inner = {
-                    key: partial(_tail_split_call, key)
-                    for key in inner
-                }
-
-            def _dedupe(s: OptState) -> OptState:
-                """Donation requires distinct buffers per leaf; the
-                init state (x = xo1 = xo2 = x0) and jit input
-                forwarding can alias leaves.  Copy-on-duplicate is a
-                no-op in steady state (pointer check only)."""
-                seen = set()
-                out = []
-                for v in s:
-                    try:
-                        ptr = v.unsafe_buffer_pointer()
-                    except Exception:  # noqa: BLE001
-                        ptr = None
-                    if ptr is not None and ptr in seen:
-                        v = v + jnp.zeros((), v.dtype)
-                    elif ptr is not None:
-                        seen.add(ptr)
-                    out.append(v)
-                return OptState(*out)
-
-            # giga-dof memory lever (-park_design): the solve's ~14.5 GB
-            # peak at 512^3 leaves no room for the ~4 GB of design/MMA/
-            # filter state the tail needs — park those fields on the
-            # HOST while the chunked solve runs and restore them for the
-            # tail program.  Bit-exact (pure data movement); only xPhys
-            # (consumed by the solve) and u (aliased into the Krylov
-            # state) stay device-resident through the solve phase.
-            park = cfg.resolve_park(cfg.ndof)
-            PARK_FIELDS = ("x", "xTilde", "L", "U", "xo1", "xo2")
-            if park:
-                # Hs is parked as None: the tail RECOMPUTES the
-                # ones-conv (one extra FFT conv, ~0.2 s at 512^3)
-                # instead of shipping the 0.54 GB field over the host
-                # link every iteration (filter 2 routes through the
-                # SPMD driver and never reaches this branch)
-                hs_host = (
-                    None if cfg.filter in (0, 1) and
-                    filt._fft_conv is not None
-                    else np.asarray(filt_consts[0])
-                )
-                filt_consts_host = (
-                    hs_host,
-                    jax.tree_util.tree_map(
-                        np.asarray, filt_consts[1]
-                    ),
-                )
-                # drop every device reference to the spectra/Hs so the
-                # HBM is actually freed during the solve phase
-                filt.Hs = None
-                filt._fft_consts = None
-                if filt._fft_conv is not None:
-                    filt._fft_conv.consts = None
-                filt_consts = filt_consts_host
-                init = init._replace(**{
-                    f: np.asarray(getattr(init, f))
-                    for f in PARK_FIELDS
-                })
-
-            def step_jit(s: OptState, itr: int = 3) -> OptState:
-                key = (itr == 1, itr <= 2)
-                # s.u is blocked: the donation into the solve ALIASES
-                # (same layout) — no nodal field exists at solve peak
-                res = physics.solve_state_blocked(s.xPhys, s.u)
-                # next-state history BEFORE restore: in parked mode the
-                # host copies of x/xo1 become xo1/xo2 directly (two
-                # fewer D2H transfers per iteration)
-                x_prev, xo1_prev = s.x, s.xo1
-                if park:
-                    # restore the parked host fields for the tail
-                    # (jnp.asarray is a no-op on device leaves, e.g.
-                    # after a beta-continuation reprojection).  Without
-                    # projection the old xTilde is DEAD in the tail
-                    # (only the projection chain rule reads it): a
-                    # device-side zeros placeholder skips its 0.54 GB
-                    # upload (~24 s/iteration on this link)
-                    def _restore(f):
-                        v = getattr(s, f)
-                        if f == "xTilde" and not projection:
-                            return jnp.zeros(v.shape, v.dtype)
-                        return jnp.asarray(v)
-
-                    s = s._replace(**{
-                        f: _restore(f) for f in PARK_FIELDS
-                    })
-                    fc = jax.tree_util.tree_map(
-                        jnp.asarray, filt_consts_host
-                    )
-                else:
-                    fc = filt_consts
-                    x_prev, xo1_prev = None, None  # use device leaves
-                s = _dedupe(s._replace(u=res.x))
-                kept = {
-                    f: getattr(s, f)
-                    for f in OptState._fields if f not in DON
-                }
-                don = {f: getattr(s, f) for f in DON}
-                o = inner[key](kept, don, res.iters, res.relres, fc)
-                out = OptState(
-                    x=o["x"], xTilde=o["xTilde"], xPhys=o["xPhys"],
-                    u=s.u,
-                    L=o["L"], U=o["U"],
-                    xo1=x_prev if x_prev is not None else s.x,
-                    xo2=xo1_prev if xo1_prev is not None else s.xo1,
-                    fscale=o["fscale"], beta=s.beta,
-                    fx=o["fx"], gx=o["gx"], ch=o["ch"], mnd=o["mnd"],
-                    solver_iters=res.iters, solver_relres=res.relres,
-                )
-                if park:
-                    out = out._replace(**{
-                        f: np.asarray(getattr(out, f))
-                        for f in PARK_FIELDS
-                    })
-                return out
-
-            if return_aux:
-                aux = {
-                    "grid": grid,
-                    "physics": physics,
-                    "filt": filt,
-                    "filt_consts": filt_consts,
-                    "u_to_nodal": u_to_nodal,
-                    "u_from_nodal": u_from_nodal,
-                }
-                return step_jit, init, aux
-            return step_jit, init
-
-        inner = {
-            key: jax.jit(
-                partial(
-                    step, first_iter=key[0], fresh_asymptotes=key[1]
-                )
-            )
-            for key in ((True, True), (False, True), (False, False))
-        }
+        inner = jax.jit(step)
 
     def step_jit(s: OptState, itr: int = 3) -> OptState:
-        key = (itr == 1, itr <= 2)
-        return inner[key](s, rhs, masks, filt_consts)
+        return inner(s, rhs, masks, filt_consts,
+                     jnp.asarray(itr, jnp.int32))
 
     if return_aux:
         aux = {
@@ -499,8 +193,6 @@ def make_fused_step(cfg: TopOptConfig, mesh=None, return_aux: bool = False):
             "physics": physics,
             "filt": filt,
             "filt_consts": filt_consts,
-            "u_to_nodal": u_to_nodal,
-            "u_from_nodal": u_from_nodal,
         }
         return step_jit, init, aux
     return step_jit, init

@@ -1,4 +1,4 @@
-"""Device mesh + sharding specs: the DMDA domain decomposition, TPU-native.
+"""Device mesh + sharding specs: the DMDA domain decomposition in JAX.
 
 The reference decomposes its structured grids into per-rank sub-boxes with
 PETSc's DMDA (`DMDACreate3d(..., PETSC_DECIDE x3, ...)`, TopOpt.cc:233) and
@@ -37,7 +37,7 @@ def make_device_mesh(
     """Build the ('x','y','z') device mesh.
 
     mesh_shape must multiply to the device count used.  (1,1,1) with one
-    device gives the single-chip degenerate mesh — all code paths are
+    device gives the single-device degenerate mesh — all code paths are
     identical, collectives become no-ops.
     """
     devices = list(devices if devices is not None else jax.devices())

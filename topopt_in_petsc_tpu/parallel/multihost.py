@@ -1,45 +1,38 @@
-"""Multi-host initialization (the reference's `mpirun -np N` launch,
-README.md:29, as single-program multi-host JAX).
+"""Multi-process initialization (the reference's `mpirun -np N` launch,
+README.md:29, as single-program multi-process JAX).
 
-On a TPU pod slice, run the same script on every host:
+Start the same CLI once per process with JAX's own variables set:
 
-    from topopt_in_petsc_tpu.parallel.multihost import initialize
-    initialize()                      # jax.distributed under TPU env vars
-    cfg = TopOptConfig(..., mesh_shape=(4, 2, 2))   # product = global chips
-    run_topopt(cfg)
+    JAX_COORDINATOR_ADDRESS=host0:1234 JAX_NUM_PROCESSES=2 \\
+    JAX_PROCESS_ID=<0|1> python -m topopt_in_petsc_tpu -mesh_shape 2,2,2 ...
 
-The ('x','y','z') device mesh then spans all hosts; the SPMD halo
-engine's ppermute plane exchanges ride ICI within a slice and DCN across
-slices exactly as laid out by `make_device_mesh` (contiguous blocks of
-`jax.devices()` per axis — keep the fastest-varying mesh axis within a
-host for ICI-local halos).
+The ('x','y','z') device mesh then spans all processes; the SPMD halo
+engine's ppermute plane exchanges run wherever `make_device_mesh` puts
+neighbouring blocks.  Without `JAX_COORDINATOR_ADDRESS` the run is a
+single process and nothing is initialized.
 
 Host-side IO (VTU/restart gathers in SpmdDriver) runs on process 0 only.
 """
 
 from __future__ import annotations
 
+import os
+
 import jax
 
 
-def initialize(**kwargs) -> None:
-    """jax.distributed.initialize with TPU auto-detection; no-op when
-    single-process."""
-    try:
-        if jax.process_count() > 1:
-            return  # already initialized
-    except RuntimeError:
-        pass
-    try:
-        jax.distributed.initialize(**kwargs)
-    except Exception as e:  # single-host / no coordinator: fine
-        if kwargs:
-            raise
-        print(f"# multihost: single-process mode ({type(e).__name__})")
+def initialize() -> None:
+    """Join the multi-process job described by the environment; no-op
+    for a single process."""
+    address = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if not address:
+        return
+    jax.distributed.initialize(
+        coordinator_address=address,
+        num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
+        process_id=int(os.environ["JAX_PROCESS_ID"]),
+    )
 
 
 def is_primary() -> bool:
-    try:
-        return jax.process_index() == 0
-    except RuntimeError:
-        return True
+    return jax.process_index() == 0

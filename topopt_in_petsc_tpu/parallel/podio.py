@@ -1,4 +1,4 @@
-"""Pod-safe host<->device transfers for the SPMD driver.
+"""Multi-host-safe host<->device transfers for the SPMD driver.
 
 On multi-host JAX a globally-sharded array's shards are NOT all
 addressable from one process: `np.asarray(global)` raises, and
@@ -18,14 +18,13 @@ restart readers (TopOpt.cc:514-570):
   process ever materializes the full array on its host.
 - `put_blocked(host_global, sharding)`: build the global sharded array
   via `jax.make_array_from_callback`, which asks each process only for
-  its ADDRESSABLE blocks — the pod-safe inverse for restart loads
+  its ADDRESSABLE blocks — the multi-host-safe inverse for restart loads
   (every process must be able to read the checkpoint file, as with the
   reference's PetscViewer loads).
 
 The shard-dump branch assumes the scratch directory is visible to all
-hosts (a shared filesystem / GCS fuse mount — the standard pod setup;
-the reference's MPI-IO makes the same assumption about its output
-path).
+hosts (a shared filesystem — the reference's MPI-IO makes the same
+assumption about its output path).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """SPMD halo engine: shard_map + ppermute over overlapping blocks.
 
-This is the scalable multi-chip execution path (SURVEY §7.2 step 7 and the
+This is the scalable multi-device execution path (SURVEY §7.2 step 7 and the
 BASELINE north star): the structured grid is block-partitioned over the
 ('x','y','z') device mesh exactly like PETSc's DMDA partitions it over MPI
 ranks, and the ghost traffic the reference gets from DMGlobalToLocal /
 VecScatter (LinearElasticity.cc:249, SURVEY §2.2.2) is explicit
-`lax.ppermute` plane exchange over ICI:
+`lax.ppermute` plane exchange between neighbouring devices:
 
  - `halo_accumulate`: completes FEM scatter-adds on duplicated planes
    (one ±plane exchange per axis, axis-sequenced so edge/corner nodes
@@ -225,7 +225,7 @@ class SpmdMultigrid:
         precise_dots: bool = True,
         coarse_op: str = "rediscretize",
         fine_apply=None,
-        level_applies=None,
+        precond_dtype=None,
     ):
         self.decomp = decomp
         self.mesh_shape = decomp.mesh_shape
@@ -250,36 +250,21 @@ class SpmdMultigrid:
         self.coarse_rtol = coarse_rtol
         self.coarse_maxit = coarse_maxit
         self.precise = precise_dots
-        # optional fused LOCAL K@u kernels (the Pallas kernel built
-        # for the local block shapes): apply(v, coef) -> K v, free BCs;
-        # halo_accumulate completes it across blocks like the XLA form.
-        # level_applies: per-level list (None entries = XLA);
-        # fine_apply is the level-0 shorthand.
-        self.level_applies = list(
-            level_applies
-            if level_applies is not None
-            else [None] * self.nlvls
-        )
-        if fine_apply is not None:
-            self.level_applies[0] = fine_apply
-
-    @property
-    def fine_apply(self):
-        return self.level_applies[0]
-
-    @fine_apply.setter
-    def fine_apply(self, fn):
-        self.level_applies[0] = fn
+        # optional fused LOCAL fine-level K@u (ops/select.make_fine_apply
+        # built for the local block shape): free BCs, float32 only;
+        # halo_accumulate completes it across blocks like the XLA form
+        self.fine_apply = fine_apply
+        # precond_dtype (bf16): the V-cycle runs on cast copies of the
+        # level data, like solvers.multigrid.GeometricMultigrid
+        self.precond_dtype = precond_dtype
 
     # env: per-level dicts of LOCAL arrays:
     #   mask (or None), weights w, origin offsets, and per-solve coef/dinv
 
-    def _raw_apply(self, level, coef, v, prepared=None):
-        ap = self.level_applies[level]
-        if ap is not None:
-            if prepared is not None:
-                return ap.apply_prepared(v, prepared)
-            return ap(v, coef)
+    def _raw_apply(self, level, coef, v):
+        if level == 0 and self.fine_apply is not None and \
+                v.dtype == jnp.float32:
+            return self.fine_apply(v, coef)
         if level == 0 or self.coarse_op != "galerkin_octant":
             return apply_hex_operator(v, coef, self.KEs[level])
         return apply_hex_operator_octant(v, coef, self.KEps[level])
@@ -290,7 +275,6 @@ class SpmdMultigrid:
             level,
             lvl["coef"],
             (lvl["mask"] * v) if lvl["mask"] is not None else v,
-            prepared=lvl.get("fine_coef"),
         )
         Kv = halo_accumulate(Kv, self.mesh_shape)
         if lvl["mask"] is not None:
@@ -329,11 +313,6 @@ class SpmdMultigrid:
                     jnp.abs(self.KEps[l]),
                 )
             lvl["coef"] = coef
-            ap = self.level_applies[l]
-            if ap is not None and hasattr(ap, "prepare_coef"):
-                # hoist the kernel's blocked-coefficient prep out of
-                # every matvec (constant within one solve)
-                lvl["fine_coef"] = ap.prepare_coef(coef)
             d = halo_accumulate(d, self.mesh_shape)
             if lvl["mask"] is not None:
                 d = lvl["mask"] * d + (1.0 - lvl["mask"])
@@ -387,6 +366,32 @@ class SpmdMultigrid:
         x = x + e
         x = smooth(b, x)
         return x
+
+    def preconditioner(self, env):
+        """r -> V-cycle(r), in `precond_dtype` when one is set (the outer
+        Krylov stays in the field dtype; flexible CG absorbs the
+        rounding)."""
+        if self.precond_dtype is None:
+            return lambda r: self.vcycle(env, r)
+        pdt = self.precond_dtype
+        cast = [
+            {k: v if v is None or k in ("lmax", "offsets")
+             else v.astype(pdt) for k, v in lvl.items()}
+            for lvl in env
+        ]
+
+        def M(r):
+            saved = (self.KEs, self.KEps)
+            self.KEs = [k.astype(pdt) for k in self.KEs]
+            self.KEps = [None if k is None else k.astype(pdt)
+                         for k in self.KEps]
+            try:
+                z = self.vcycle(cast, r.astype(pdt))
+            finally:
+                self.KEs, self.KEps = saved
+            return z.astype(r.dtype)
+
+        return M
 
     # ------------------------------------------------------------- #
     # host-side: build the blocked static inputs

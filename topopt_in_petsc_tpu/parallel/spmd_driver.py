@@ -1,4 +1,4 @@
-"""Multi-chip optimization driver over the SPMD halo engine.
+"""Multi-device optimization driver over the SPMD halo engine.
 
 Runs the main.cc loop with each iteration as ONE SPMD program over the
 ('x','y','z') device mesh (parallel.spmd_model.make_spmd_fused_step):
@@ -69,14 +69,14 @@ class SpmdDriver:
                     xo2=e.blocked_elem(data["xo2"]),
                     U=e.blocked_elem(data["U"]),
                     L=e.blocked_elem(data["L"]),
-                    fscale=jnp.asarray(
-                        float(data["fscale"]), e.dtype
+                    fscale=e.put_rep(
+                        np.asarray(float(data["fscale"]), e.dtype)
                     ),
                 )
                 sol = self.restart_mgr.load_state(cfg.restartFileVecSol)
                 if sol is not None:
                     self.state = self.state._replace(
-                        u=e.u_from_nodal_blk(e.blocked_nodal(sol))
+                        u=e.blocked_nodal(sol)
                     )
                 print(
                     f"# Continue optimization from file: "
@@ -114,9 +114,6 @@ class SpmdDriver:
     def _gather_nodal(self, blk, tag="u"):
         from topopt_in_petsc_tpu.parallel.podio import gather_blocked
 
-        # the chunked state carries u in the solver's kernel layout;
-        # convert per shard (identity on the other engines)
-        blk = self.engine.u_to_nodal_blk(blk)
         g = gather_blocked(blk, scratch_dir=self._scratch(), tag=tag)
         if g is None:
             return None
@@ -189,7 +186,7 @@ class SpmdDriver:
             xTilde=xTilde, xPhys=xPhys, u_pde=u_pde
         )
         history = {"fx": [], "gx": [], "ch": [], "mnd": [], "iters": [],
-                   "time": [], "stalled": []}
+                   "relres": [], "time": [], "stalled": []}
         ch = 1.0
         while self.itr < maxItr and ch > 0.01:
             self.itr += 1
@@ -224,7 +221,9 @@ class SpmdDriver:
                 # elementwise re-projection is exact; duplicated halo
                 # entries stay consistent.
                 if beta != float(s.beta):
-                    beta_a = jnp.asarray(beta, self.engine.dtype)
+                    beta_a = self.engine.put_rep(
+                        np.asarray(beta, self.engine.dtype)
+                    )
                     xPhys = jax.jit(smooth_projection)(
                         s.xTilde, beta_a,
                         jnp.asarray(self.cfg.eta, self.engine.dtype),
@@ -265,6 +264,7 @@ class SpmdDriver:
             history["ch"].append(ch)
             history["mnd"].append(mnd)
             history["iters"].append(int(s.solver_iters))
+            history["relres"].append(float(s.solver_relres))
             history["time"].append(t2 - t1)
             history["stalled"].append(stalled)
 

@@ -55,32 +55,6 @@ class SpmdPDEFilter:
         self.pde_decomp = BlockDecomp(grid, self.mesh_shape, nlvls)
         grids = grid.hierarchy(nlvls)
         KFs = [helmholtz_element_matrices(*g.h, self.R)[0] for g in grids]
-        impl = cfg.operator_impl
-        if impl == "auto":
-            impl = (
-                "pallas"
-                if jax.devices()[0].platform == "tpu"
-                else "xla"
-            )
-        level_applies = None
-        if impl == "pallas":
-            from topopt_in_petsc_tpu.ops.pallas_hex import (
-                make_pallas_helmholtz_apply,
-            )
-
-            coarse_kernels = min(self.pde_decomp.local_nn(0)) <= 129
-            level_applies = [
-                make_pallas_helmholtz_apply(
-                    self.pde_decomp.local_nn(l), KFs[l]
-                )
-                if l == 0
-                or (
-                    coarse_kernels
-                    and min(self.pde_decomp.local_nn(l)) >= 17
-                )
-                else None
-                for l in range(nlvls)
-            ]
         self.mg = SpmdMultigrid(
             self.pde_decomp,
             KFs,
@@ -91,7 +65,6 @@ class SpmdPDEFilter:
             coarse_maxit=10,
             precise_dots=cfg.precise_dots,
             coarse_op=cfg.coarse_op,
-            level_applies=level_applies,
         )
         env_np = self.mg.build_static_env(None)
         put = lambda a: jax.device_put(a, NamedSharding(self.mesh, BLK))

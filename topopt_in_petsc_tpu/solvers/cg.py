@@ -1,12 +1,12 @@
 """Preconditioned (flexible) conjugate gradients.
 
-TPU-native replacement for the reference's outer Krylov loop.  The reference
+JAX replacement for the reference's outer Krylov loop.  The reference
 uses FGMRES(100) (LinearElasticity.cc:638-650) because its V-cycle smoothers
 (GMRES+SOR) make the preconditioner nonstationary; the stiffness matrix K is
 SPD after the symmetric Dirichlet treatment K <- N'KN + (I-N)
 (LinearElasticity.cc:530-538), so with an SPD multigrid preconditioner the
-right TPU-native Krylov method is CG: short recurrences (no Arnoldi basis of
-100 vectors in HBM), two dots per iteration (psum over the device mesh).
+natural Krylov method is CG: short recurrences (no Arnoldi basis of 100
+vectors in device memory), two dots per iteration (psum over the mesh).
 The flexible (Polak-Ribiere / IPCG) variant is the default, which tolerates
 the slight nonstationarity introduced by a CG coarse-level solve, the same
 robustness role FGMRES plays in the reference.
@@ -32,21 +32,14 @@ _DOT_CHUNK = 131072
 def _dot(a: jax.Array, b: jax.Array, precise: bool) -> jax.Array:
     """Inner product with optional high-accuracy accumulation.
 
-    The 'precise' path is a chunked two-stage reduction: exact-ish f32
-    dots over 128K-element chunks (reshape views, no copies), then an
-    f64 sum over the few hundred partials.  This replaces full-vector
-    .astype(f64) casts for two measured reasons on this TPU backend:
-    (a) the f64 copies cost 2x vector storage in HBM transients, which
-    tips 257^3-under-x64 solves over the 16 GB chip (worker crash);
-    (b) wide f64 arithmetic is silently demoted on-device anyway
-    (summing 50.9M ones via an astype(f64) vdot returns an off-by-one
-    f32-grade result), so the casts bought no accuracy.
+    The 'precise' path is a two-stage reduction: float32 partial dots
+    (over the minor axes, or over 128K-element chunks of a flat
+    vector), then a float64 sum of the partials — no full-size float64
+    copies of the operands.
     """
     if precise and a.dtype != jnp.float64 and a.ndim >= 2:
-        # reduce over the MINOR axes in one fused pass (no relayout:
-        # ravel/reshape of tiled 4D fields costs ~28 ms per dot at
-        # 257^3, measured +4.5 s per solve), then widen across the
-        # leading-axis partials
+        # reduce over the minor axes in one fused pass (no ravel of the
+        # 4D field), then widen across the leading-axis partials
         axes = list(range(a.ndim))
         parts = jnp.einsum(
             a, axes, b, axes, [0],
@@ -73,8 +66,8 @@ def _dot(a: jax.Array, b: jax.Array, precise: bool) -> jax.Array:
 
 
 def accurate_sum(v: jax.Array, precise: bool = True) -> jax.Array:
-    """Chunked two-stage sum; same rationale as the precise _dot (no
-    full-size f64 transients, real accuracy gain on this backend)."""
+    """Chunked two-stage sum; same form as the precise _dot (no
+    full-size f64 transients)."""
     if precise and v.dtype != jnp.float64 and v.ndim >= 2:
         parts = jnp.sum(v, axis=tuple(range(1, v.ndim)))
         return jnp.sum(parts, dtype=jnp.float64)
@@ -99,14 +92,11 @@ class CGResult(NamedTuple):
 
 
 class PCGState(NamedTuple):
-    """Full Krylov carry: crossing a jit boundary with this (see
-    `pcg(state0=..., return_state=True)`) continues the SAME solve —
-    needed because this backend kills single device executions beyond
-    ~1-2 min (512^3 runs ~0.8 s/iteration)."""
+    """The Krylov loop carry."""
 
     x: jax.Array
     r: jax.Array
-    p: jax.Array  # possibly p_compress-typed
+    p: jax.Array
     rz: jax.Array
     rnorm: jax.Array
     bnorm: jax.Array
@@ -125,10 +115,6 @@ def pcg(
     flexible: bool = True,
     precise_dots: bool = True,
     dot: Callable | None = None,
-    flex_compress=None,
-    p_compress=None,
-    state0: "PCGState | None" = None,
-    return_state: bool = False,
 ) -> CGResult:
     """Solve A x = b with preconditioned CG, nonzero initial guess.
 
@@ -142,24 +128,7 @@ def pcg(
     Flexible (Polak-Ribiere) beta is computed as z.(r_new - r_old)
     = -alpha * z.Ap — the identity lets the old residual die before the
     preconditioner runs, so only Ap stays live across M (one fewer
-    full-precision vector at the peak).  `flex_compress` (a dtype, e.g.
-    bfloat16) optionally stores that kept copy of Ap compressed: the
-    beta correction term tolerates ~1e-3 relative error, and at 512^3
-    the halved buffer is part of the single-chip memory budget.
-
-    `p_compress` (a dtype) stores the CARRIED search direction
-    compressed.  The rounded p is used consistently for Ap, the x
-    update, and the r update, so each iteration is exact CG along the
-    rounded direction; only conjugacy across iterations degrades
-    (~p_compress epsilon), which the flexible beta absorbs.  x and r
-    always stay full precision.
-
-    `state0` resumes from a previous call's `.state` (returned when
-    `return_state=True`): the full Krylov carry {x, r, p, rz, rnorm,
-    k, bnorm} crosses the call boundary, so a host loop over short
-    `maxiter` chunks IS the single long solve (no restart) — this
-    backend kills device executions beyond ~1-2 minutes, so giant
-    solves (512^3: ~0.8 s/iteration) must be chunked.
+    full-precision vector at the peak).
     """
     if M is None:
         M = lambda r: r
@@ -167,50 +136,39 @@ def pcg(
     if dot is None:
         dot = partial(_dot, precise=precise_dots)
 
-    if state0 is None:
-        r = b - A(x0)
-        z = M(r)
-        rz = dot(r, z)
-        bnorm = jnp.sqrt(dot(b, b))
-        rnorm0 = jnp.sqrt(dot(r, r))
-        p0 = z.astype(p_compress) if p_compress is not None else z
-        init = PCGState(
-            x0, r, p0, rz, rnorm0, bnorm, jnp.asarray(0, jnp.int32)
-        )
-    else:
-        init = PCGState(*state0)
+    r = b - A(x0)
+    z = M(r)
+    rz = dot(r, z)
+    bnorm = jnp.sqrt(dot(b, b))
+    rnorm0 = jnp.sqrt(dot(r, r))
+    init = PCGState(x0, r, z, rz, rnorm0, bnorm, jnp.asarray(0, jnp.int32))
     tol = jnp.maximum(rtol * init.bnorm, atol)
 
     # NOTE: z is intentionally NOT part of the loop carry — the body
     # never reads the previous z, and every carried vector costs a live
-    # HBM buffer across the whole solve (the 512^3 fit depends on the
-    # carry being exactly {x, r, p}).
+    # buffer across the whole solve.
 
     def cond(s: PCGState):
         return jnp.logical_and(s.k < maxiter, s.rnorm > tol)
 
     def body(s: PCGState):
         vdt = s.x.dtype
-        p = s.p.astype(vdt) if p_compress is not None else s.p
+        p = s.p
         Ap = A(p)
         pAp = dot(p, Ap)
         alpha = (s.rz / pAp).astype(vdt)
         x = s.x + alpha * p
         r = s.r - alpha * Ap
-        if flexible and flex_compress is not None:
-            Ap = Ap.astype(flex_compress)
         z = M(r)
         if flexible:
             # Polak-Ribiere (robust to slightly nonstationary M) via
             # r_new - r_old = -alpha*Ap: s.r dies before M runs.
-            beta_num = -alpha * dot(z, Ap.astype(z.dtype))
+            beta_num = -alpha * dot(z, Ap)
         else:
             beta_num = dot(z, r)
         rz = dot(r, z)
         beta = (beta_num / s.rz).astype(vdt)
         p = z + beta * p
-        if p_compress is not None:
-            p = p.astype(p_compress)
         rnorm = jnp.sqrt(dot(r, r))
         return PCGState(x, r, p, rz, rnorm, s.bnorm, s.k + 1)
 
@@ -220,4 +178,4 @@ def pcg(
         iters=final.k,
         relres=final.rnorm / jnp.maximum(final.bnorm, 1e-300),
     )
-    return (res, final) if return_state else res
+    return res

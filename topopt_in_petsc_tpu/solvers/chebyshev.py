@@ -3,8 +3,8 @@
 The reference smooths each multigrid level with GMRES(4)+SOR
 (LinearElasticity.cc:734-746) and its own comments recommend Chebyshev for
 SPD problems (cc:739-745).  SOR is inherently sequential (forward sweeps over
-rows) and a poor fit for the TPU's vector units; Chebyshev-Jacobi is the
-standard TPU/GPU-friendly smoother: it is matrix-free (only needs K@v and
+rows) and a poor fit for data-parallel hardware; Chebyshev-Jacobi is the
+standard GPU-friendly smoother: it is matrix-free (only needs K@v and
 diag(K)), embarrassingly parallel, and — unlike GMRES/SOR — a *fixed linear
 operator*, which keeps the V-cycle a symmetric positive definite
 preconditioner so plain CG stays valid on the outside.

@@ -3,7 +3,7 @@
 The reference solves the state equation with FGMRES(100) + PCMG
 (LinearElasticity.cc:638-650).  This framework defaults to flexible PCG
 (solvers/cg.py) because K is SPD and short recurrences keep only 4
-vectors in HBM; FGMRES is kept as the robustness fallback behind
+vectors in device memory; FGMRES is kept as the robustness fallback behind
 `-ksp_type fgmres` for operating points where FCG might stall (extreme
 SIMP contrast + aggressive beta projection), mirroring the reference's
 solver choice exactly.
@@ -16,7 +16,7 @@ the correction is x += Z y.  Basis arrays are statically shaped
 modified-Gram-Schmidt — fully jit-compatible, no host syncs.
 
 Memory: (2*restart+1) nodal vectors, vs 4 for FCG — the reason FCG is
-the TPU default (SURVEY §7.1).
+the default (SURVEY §7.1).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Geometric multigrid preconditioner on the structured hex grid.
 
-TPU-native replacement for the reference's PCMG stack
+JAX replacement for the reference's PCMG stack
 (LinearElasticity.cc:654-746, PDEFilter.cc:290-380):
 
-reference (PETSc)                       | this module (JAX/TPU)
+reference (PETSc)                       | this module (JAX)
 ----------------------------------------|--------------------------------------
 DMCoarsenHierarchy (cc:689)             | Grid.hierarchy: static 2h grids
 DMCreateInterpolation (cc:704)          | separable trilinear prolong/restrict
@@ -110,15 +110,8 @@ def restrict(rf: jax.Array) -> jax.Array:
 def coarsen_cell_field(E: jax.Array) -> jax.Array:
     """2x2x2 arithmetic average of a per-element field (8-child averaging of
     the SIMP-scaled stiffness; SURVEY §7.1 'coarsen densities not
-    operators').
-
-    Form chosen by measurement (256^3 field, v5e): reshape-sum on the
-    two MAJOR axes (layout-neutral: the lane dim is untouched) + one
-    even/odd slice pair on the lane axis = 26 ms.  The naive 6D
-    reshape-mean lays the (.., n, 2) split out tiled with the minor dim
-    padded 2 -> 128 lanes (38 ms here; a 34 GB compile-time OOM at
-    512^3), and the all-strided-slices form costs 263 ms (8 stride-2
-    gathers)."""
+    operators'): reshape-sums on the two major axes, one even/odd slice
+    pair on the minor axis."""
     ex, ey, ez = E.shape
     E = E.reshape(ex // 2, 2, ey, ez).sum(axis=1)
     E = E.reshape(ex // 2, ey // 2, 2, ez).sum(axis=2)
@@ -157,13 +150,12 @@ class GeometricMultigrid:
         coarse_op: str = "rediscretize",
         precond_dtype=None,
         fine_apply=None,
-        level_applies=None,
     ):
         # precond_dtype: run the whole V-cycle in a lower precision
         # (bf16): the preconditioner only steers CG, so its rounding
-        # costs a few extra FCG iterations while halving HBM traffic and
-        # using the fast MXU path; flexible CG absorbs the
-        # nonstationarity.  None = same dtype as the operator.
+        # costs a few extra FCG iterations while halving the V-cycle's
+        # memory traffic; flexible CG absorbs the nonstationarity.
+        # None = same dtype as the operator.
         self.precond_dtype = precond_dtype
         self.grids = tuple(grids)
         self.nlvls = len(self.grids)
@@ -188,8 +180,8 @@ class GeometricMultigrid:
         else:
             self.KEps = [None] * self.nlvls
         # Masks are *not* captured into jitted programs as constants —
-        # at 256^3+ a closed-over (nx,ny,nz,3) mask becomes a >200 MB
-        # XLA constant (breaks remote compile).  They are returned by
+        # at 256^3+ a closed-over (nx,ny,nz,3) mask would be a >200 MB
+        # constant in the compiled program.  They are returned by
         # `mask_args()` and flow through `setup`/`apply` as arguments.
         if masks is None:
             self.masks = None
@@ -201,37 +193,17 @@ class GeometricMultigrid:
         self.coarse_rtol = coarse_rtol
         self.coarse_maxit = coarse_maxit
         self.precise_dots = precise_dots
-        # optional fused K@u kernels (the Pallas kernel,
-        # ops/pallas_hex.py): apply(v, coef) -> K v with free BCs.
-        # `level_applies` is a per-level list (None entries fall back
-        # to XLA); `fine_apply` is the level-0 shorthand.  With
-        # rediscretized coarsening every level is the same hex-operator
-        # form, so the kernel applies on coarse levels too.
-        self.level_applies = list(
-            level_applies
-            if level_applies is not None
-            else [None] * self.nlvls
-        )
-        if fine_apply is not None:
-            self.level_applies[0] = fine_apply
-
-    @property
-    def fine_apply(self):
-        return self.level_applies[0]
-
-    @fine_apply.setter
-    def fine_apply(self, fn):
-        self.level_applies[0] = fn
+        # optional fused fine-level K@u (ops/select.make_fine_apply):
+        # apply(v, coef) -> K v with free BCs, float32 only — a
+        # reduced-precision V-cycle keeps the XLA form
+        self.fine_apply = fine_apply
 
     # -- per-level masked operator ------------------------------------ #
 
-    def _raw_apply(self, level: int, coef: jax.Array, v: jax.Array,
-                   prepared=None):
-        ap = self.level_applies[level]
-        if ap is not None:
-            if prepared is not None:
-                return ap.apply_prepared(v, prepared)
-            return ap(v, coef)
+    def _raw_apply(self, level: int, coef: jax.Array, v: jax.Array):
+        if level == 0 and self.fine_apply is not None and \
+                v.dtype == jnp.float32:
+            return self.fine_apply(v, coef)
         if level == 0 or self.coarse_op != "galerkin_octant":
             return apply_hex_operator(v, coef, self.KEs[level])
         return apply_hex_operator_octant(v, coef, self.KEps[level])
@@ -243,8 +215,7 @@ class GeometricMultigrid:
 
     def _raw_absrowsum(self, level: int, coef: jax.Array, ones):
         if level == 0 or self.coarse_op != "galerkin_octant":
-            # stencil form: no (nelem, 8*dof) gather transient (the
-            # gather form cannot compile at 512^3) and ~10x less setup
+            # stencil form: no (nelem, 8*dof) gather transient
             return hex_operator_absrowsum(
                 coef, self.KEs[level], ones.shape[:3]
             )
@@ -257,13 +228,13 @@ class GeometricMultigrid:
         return self.masks
 
     def apply(self, level: int, coef: jax.Array, v: jax.Array,
-              masks=None, prepared=None) -> jax.Array:
+              masks=None) -> jax.Array:
         """A_l v = N (K_l (N v)) + (I - N) v   (LinearElasticity.cc:530-538,
         applied matrix-free at every level)."""
         if masks is None:
-            return self._raw_apply(level, coef, v, prepared)
+            return self._raw_apply(level, coef, v)
         N = masks[level]
-        Kv = self._raw_apply(level, coef, N * v, prepared)
+        Kv = self._raw_apply(level, coef, N * v)
         return N * Kv + (1.0 - N) * v
 
     # -- setup (traced; called once per outer iteration) -------------- #
@@ -300,14 +271,8 @@ class GeometricMultigrid:
             ones = jnp.ones((nn[0], nn[1], nn[2], self.dof), self.dtype)
             R = self._raw_absrowsum(l, coef, ones)
             lmax = gershgorin_lambda_max(R, d, mask)
-            lvl = {"coef": coef, "dinv": 1.0 / d, "lmax": lmax,
-                   "mask": mask}
-            ap = self.level_applies[l]
-            if ap is not None and hasattr(ap, "prepare_coef"):
-                # hoist the kernel's blocked-coefficient prep out of
-                # every matvec (constant within one solve)
-                lvl["fine_coef"] = ap.prepare_coef(coef)
-            levels.append(lvl)
+            levels.append({"coef": coef, "dinv": 1.0 / d, "lmax": lmax,
+                           "mask": mask})
         return levels
 
     # -- V-cycle ------------------------------------------------------ #
@@ -322,9 +287,7 @@ class GeometricMultigrid:
         lvl = levels[level]
         masks = [l["mask"] for l in levels] if lvl["mask"] is not None \
             else None
-        A = lambda v: self.apply(
-            level, lvl["coef"], v, masks, prepared=lvl.get("fine_coef")
-        )
+        A = lambda v: self.apply(level, lvl["coef"], v, masks)
 
         if level == self.nlvls - 1:
             res = pcg(
@@ -370,9 +333,8 @@ class GeometricMultigrid:
             for k, v in lvl.items():
                 if v is None:
                     out[k] = None
-                elif k in ("lmax", "fine_coef"):
-                    # lmax: keep the eigenvalue bound in f32;
-                    # fine_coef: the pallas kernel computes in f32
+                elif k == "lmax":
+                    # keep the eigenvalue bound in f32
                     out[k] = v
                 else:
                     out[k] = v.astype(pdt)

@@ -1,7 +1,4 @@
 from topopt_in_petsc_tpu.utils.timers import Timer, timed
-from topopt_in_petsc_tpu.utils.profiling import (
-    trace_to,
-    speed_of_light_spmv,
-)
+from topopt_in_petsc_tpu.utils.profiling import trace_to
 
-__all__ = ["Timer", "timed", "trace_to", "speed_of_light_spmv"]
+__all__ = ["Timer", "timed", "trace_to"]

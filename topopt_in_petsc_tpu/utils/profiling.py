@@ -1,26 +1,14 @@
-"""Profiling + speed-of-light analysis (SURVEY §5 'tracing/profiling').
+"""Profiler trace capture (SURVEY §5 'tracing/profiling').
 
-The reference has only manual wall-clock prints; on TPU we add
-`jax.profiler` trace capture and a roofline model for the hot kernel
-(the matrix-free elasticity SpMV) so measured throughput can be compared
-against the hardware bound, as BASELINE.md demands.
+The reference has only manual wall-clock prints; `-profile_dir` adds a
+`jax.profiler` trace of the run, readable in TensorBoard or Perfetto.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from dataclasses import dataclass
 
 import jax
-
-# Hardware peaks per chip (f32 unless noted).
-CHIP_SPECS = {
-    # v5e: 197 TFLOP/s bf16, ~98.3 f32 MXU? conservatively use public
-    # numbers: 394 GB/s? -- v5e HBM BW is 819 GB/s, f32 matmul ~ 49 TFLOPs.
-    "TPU v5 lite": {"hbm_gbps": 819.0, "f32_tflops": 49.0},
-    "TPU v5p": {"hbm_gbps": 2765.0, "f32_tflops": 229.0},
-    "cpu": {"hbm_gbps": 50.0, "f32_tflops": 0.5},
-}
 
 
 @contextmanager
@@ -31,42 +19,3 @@ def trace_to(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-@dataclass
-class SpmvRoofline:
-    """Roofline estimate of the matrix-free hex-operator apply."""
-
-    nelem: int
-    dtype_bytes: int = 4
-
-    @property
-    def flops(self) -> float:
-        # (nelem, 24) x (24, 24) matmul + quadratic scaling
-        return 2.0 * 24 * 24 * self.nelem
-
-    @property
-    def bytes_moved(self) -> float:
-        # gather reads u (24 values/elem effective), density read, result
-        # write-back (24), nodal accumulate ~ 2x3 per node ~ elem
-        vals = 24 + 1 + 24 + 6
-        return vals * self.dtype_bytes * self.nelem
-
-    def bound_seconds(self, chip: str = "TPU v5 lite") -> float:
-        spec = CHIP_SPECS.get(chip, CHIP_SPECS["TPU v5 lite"])
-        t_mem = self.bytes_moved / (spec["hbm_gbps"] * 1e9)
-        t_flop = self.flops / (spec["f32_tflops"] * 1e12)
-        return max(t_mem, t_flop)
-
-
-def speed_of_light_spmv(nelem: int, measured_s: float,
-                        chip: str = "TPU v5 lite") -> dict:
-    r = SpmvRoofline(nelem)
-    bound = r.bound_seconds(chip)
-    return {
-        "measured_s": measured_s,
-        "bound_s": bound,
-        "fraction_of_sol": bound / measured_s if measured_s > 0 else 0.0,
-        "flops": r.flops,
-        "bytes": r.bytes_moved,
-    }

@@ -2,7 +2,7 @@
 
 The reference instruments with manual MPI_Wtime pairs around each outer
 iteration (main.cc:59, 105) and each linear solve
-(LinearElasticity.cc:187, 219).  These helpers are the TPU equivalent,
+(LinearElasticity.cc:187, 219).  These helpers are the JAX equivalent,
 with `jax.block_until_ready` to close the async-dispatch gap.
 """
 
